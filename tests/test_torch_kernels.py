@@ -1,0 +1,129 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `gpu`: each test decides inside itself whether a CUDA device is
+present and skips otherwise (CPU runs hold the same arithmetic through
+tests/test_torch_physics.py's host build of the sources). Run on a GPU
+machine with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+Bars: kernel A at 1e-5 (tests/test_physics_batched.py:162-188); kernel B at
+tests/test_physics_batched.py:157-159 (lin vel 1e-4, joint qd 1e-3, foot
+forces 1e-1), positions and orientations at 1e-5.
+"""
+import numpy as np
+import pytest
+import torch
+
+from wtw_tpu_torch.models import load_robot
+from wtw_tpu_torch.physics import (EngineParams, PhysicsState,
+                                   flat_heightfield, make_heightfield,
+                                   physics_step_batched)
+from wtw_tpu_torch.physics import kernels as K
+from wtw_tpu_torch.physics.batched import _hf_rows, pack_state_rows
+
+pytestmark = pytest.mark.gpu
+
+B = 4096
+
+
+def _device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _states(dev, seed=0):
+    rng = np.random.RandomState(seed)
+    t = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
+    q = rng.randn(B, 4) * 0.1 + np.array([0.0, 0.0, 0.0, 1.0])
+    st = PhysicsState(
+        base_pos=t(np.concatenate([rng.uniform(-1, 1, (B, 2)),
+                                   0.30 + rng.uniform(-0.05, 0.1, (B, 1))], 1)),
+        base_quat=t(q / np.linalg.norm(q, axis=1, keepdims=True)),
+        base_lin_vel=t(0.5 * rng.randn(B, 3)),
+        base_ang_vel=t(0.5 * rng.randn(B, 3)),
+        joint_q=t(np.tile([0.0, 0.8, -1.6] * 4, (B, 1))
+                  + 0.1 * rng.randn(B, 12)),
+        joint_qd=t(0.5 * rng.randn(B, 12)))
+    return st, t(3.0 * rng.randn(B, 12))
+
+
+def test_kernel_a_matches_plain():
+    dev = _device()
+    model = load_robot("go1", device=dev)
+    st, _ = _states(dev)
+    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q], 1).T.contiguous()
+    n0 = K.FK.launches
+    got_b, got_p = K.fk(model, fk_in)
+    assert K.FK.launches == n0 + 1
+    ref_b, ref_p = K.fk_plain(model, fk_in)
+    torch.testing.assert_close(got_b, ref_b, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got_p, ref_p, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("terrain", ["flat", "rough"])
+def test_kernel_b_matches_plain(terrain):
+    dev = _device()
+    model = load_robot("go1", device=dev)
+    st, tau = _states(dev, 1)
+    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q], 1).T.contiguous()
+    fk_b, fk_p = K.fk_plain(model, fk_in)
+    if terrain == "flat":
+        hf = flat_heightfield(20.0, 0.5, device=dev)
+    else:
+        hts = (0.06 * np.random.RandomState(3).randn(80, 80)).astype(np.float32)
+        hf = make_heightfield(hts, 0.25, [-10.0, -10.0], device=dev)
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    env = torch.cat([torch.linspace(0.3, 2.0, B, device=dev)[None],
+                     torch.linspace(0.0, 0.4, B, device=dev)[None],
+                     torch.linspace(-0.5, 2.0, B, device=dev)[None],
+                     torch.zeros(6, B, device=dev)], 0).contiguous()
+    args = (model, EngineParams(), pack_state_rows(st, tau), fk_b, fk_p,
+            hc.contiguous(), duv.contiguous(), env, 1.0 / hf.horizontal_scale)
+    n0 = K.DYNAMICS.launches
+    got = K.dynamics(*args)
+    assert K.DYNAMICS.launches == n0 + 1
+    ref = K.dynamics_plain(*args)
+    lay = K.dyn_out_layout(model.nj)
+    g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
+    tol = {"base_lin_vel": 1e-4, "joint_qd": 1e-3, "base_ang_vel": 1e-3,
+           "foot_forces": 1e-1, "thigh_contact": 1e-1, "calf_contact": 1e-1,
+           "base_contact": 1e-1, "total_normal_force": 1e-1,
+           "foot_velocities": 1e-4}
+    for k in g:
+        torch.testing.assert_close(g[k], r[k], rtol=0, atol=tol.get(k, 1e-5),
+                                   msg=k)
+
+
+def test_physics_step_runs_the_kernels_and_stays_standing():
+    dev = _device()
+    model = load_robot("go1", device=dev)
+    hf = flat_heightfield(20.0, 0.5, device=dev)
+    q0 = torch.tensor([0.0, 0.8, -1.6] * 4, device=dev).expand(B, 12)
+    s = PhysicsState(
+        base_pos=torch.tensor([0.0, 0.0, 0.32], device=dev).expand(B, 3),
+        base_quat=torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).expand(B, 4),
+        base_lin_vel=torch.zeros(B, 3, device=dev),
+        base_ang_vel=torch.zeros(B, 3, device=dev), joint_q=q0.clone(),
+        joint_qd=torch.zeros(B, 12, device=dev))
+    n0 = (K.FK.launches, K.DYNAMICS.launches)
+    for _ in range(100):
+        tau = 20.0 * (q0 - s.joint_q) - 0.5 * s.joint_qd
+        s, _ = physics_step_batched(model, hf, EngineParams(), s, tau,
+                                    torch.ones(B, device=dev),
+                                    torch.zeros(B, device=dev))
+    torch.cuda.synchronize()
+    assert (K.FK.launches - n0[0], K.DYNAMICS.launches - n0[1]) == (100, 100)
+    z = s.base_pos[:, 2]
+    assert bool(torch.isfinite(s.base_pos).all())
+    assert bool((z > 0.15).all()) and bool((z < 0.45).all())
+
+
+def test_wrapper_refuses_bad_inputs():
+    dev = _device()
+    model = load_robot("go1", device=dev)
+    with pytest.raises(ValueError):
+        K.fk(model, torch.zeros(19, 8, device=dev, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        K.fk(model, torch.zeros(8, 19, device=dev).T)

@@ -1,0 +1,350 @@
+"""Parity of the port's physics (wtw_tpu_torch.physics, plain PyTorch
+versions on the CPU) against the JAX package.
+
+Inputs are drawn with numpy from a seed and fed to both sides. The JAX
+side runs un-jitted (`jax.disable_jit()`) on its XLA path, which is its own
+plain reference of the Pallas kernels; a jit of the batched engine takes
+minutes on the CPU, the op-by-op run seconds. Tolerances: the JAX repo's
+own bars (tests/test_physics_batched.py: state 2e-4, contact forces 200x
+that, FK 1e-5); both sides are float32 with different summation orders.
+
+The last tests build the CUDA sources as plain C++ (the kernels' bodies
+compile without nvcc, see csrc/wtw_model.cuh) and hold them against the
+plain versions, so the kernels' arithmetic is checked on the CPU too.
+"""
+import ctypes
+import os
+import shutil
+import subprocess
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wtw_tpu.models import load_robot as jax_load_robot
+from wtw_tpu.physics import EngineParams as JaxEngineParams
+from wtw_tpu.physics import PhysicsState as JaxPhysicsState
+from wtw_tpu.physics import flat_heightfield as jax_flat_heightfield
+from wtw_tpu.physics.batched import _Static
+from wtw_tpu.physics.batched import fk_core as jax_fk_core
+from wtw_tpu.physics.batched import physics_step_batched as jax_step
+from wtw_tpu.physics.batched import sphere_pos_core as jax_sphere_pos_core
+from wtw_tpu.physics.heightfield import height_at as jax_height_at
+from wtw_tpu.physics.heightfield import make_heightfield as jax_make_hf
+from wtw_tpu.utils import quat as jq
+
+from wtw_tpu_torch.models import load_robot
+from wtw_tpu_torch.models.robot import ARRAY_FIELDS
+from wtw_tpu_torch.physics import (EngineParams, PhysicsState,
+                                   flat_heightfield, make_heightfield,
+                                   physics_step_batched)
+from wtw_tpu_torch.physics import kernels as K
+from wtw_tpu_torch.physics.batched import (_hf_rows, fk_core,
+                                           pack_state_rows, sphere_pos_core)
+from wtw_tpu_torch.physics.heightfield import height_at
+from wtw_tpu_torch.physics.linalg import cholesky_solve
+from wtw_tpu_torch.utils import quat as tq
+
+STATE_FIELDS = ("base_pos", "base_quat", "base_lin_vel", "base_ang_vel",
+                "joint_q", "joint_qd")
+INFO_FIELDS = ("foot_forces", "foot_positions", "foot_velocities",
+               "thigh_contact", "calf_contact", "base_contact",
+               "total_normal_force")
+
+
+def random_state(rng, B, z=0.35):
+    """Near-standing random states (tests/test_physics_batched.py:19-39)."""
+    q = rng.randn(B, 4) * 0.1 + np.array([0.0, 0.0, 0.0, 1.0])
+    f = lambda x: np.asarray(x, np.float32)
+    return dict(
+        base_pos=f(np.concatenate([rng.uniform(-1, 1, (B, 2)),
+                                   z + rng.uniform(-0.05, 0.1, (B, 1))], 1)),
+        base_quat=f(q / np.linalg.norm(q, axis=1, keepdims=True)),
+        base_lin_vel=f(0.5 * rng.randn(B, 3)),
+        base_ang_vel=f(0.5 * rng.randn(B, 3)),
+        joint_q=f(np.tile([0.0, 0.8, -1.6] * 4, (B, 1))
+                  + 0.1 * rng.randn(B, 12)),
+        joint_qd=f(0.5 * rng.randn(B, 12)))
+
+
+def test_load_robot_arrays_match_exactly():
+    jm, tm = jax_load_robot("go1"), load_robot("go1")
+    assert (tm.nb, tm.nj, tm.nv, tm.P) == (13, 12, 18, 39)
+    assert tm.parent_static == jm.parent_static
+    assert tm.joint_names == jm.joint_names
+    assert tm.body_names == jm.body_names
+    for name in ARRAY_FIELDS:
+        np.testing.assert_array_equal(getattr(tm, name).numpy(),
+                                      np.asarray(getattr(jm, name)),
+                                      err_msg=name)
+        np.testing.assert_array_equal(tm.static[name],
+                                      np.asarray(getattr(jm, name)),
+                                      err_msg=name)
+
+
+def _quats(rng, n):
+    q = rng.randn(n, 4)
+    return (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+
+
+QUAT_CASES = {
+    "quat_mul": lambda m, a, b, v, s: m.quat_mul(a, b),
+    "quat_conjugate": lambda m, a, b, v, s: m.quat_conjugate(a),
+    "quat_rotate": lambda m, a, b, v, s: m.quat_rotate(a, v),
+    "quat_rotate_inverse": lambda m, a, b, v, s: m.quat_rotate_inverse(a, v),
+    "quat_from_angle_axis": lambda m, a, b, v, s: m.quat_from_angle_axis(
+        s, v / (v * v).sum(-1, keepdims=True) ** 0.5),
+    "quat_to_matrix": lambda m, a, b, v, s: m.quat_to_matrix(a),
+    "quat_integrate": lambda m, a, b, v, s: m.quat_integrate(a, v, 0.005),
+    "quat_yaw": lambda m, a, b, v, s: m.quat_yaw(a),
+    "yaw_quat": lambda m, a, b, v, s: m.yaw_quat(a),
+    "quat_apply_yaw": lambda m, a, b, v, s: m.quat_apply_yaw(a, v),
+    "quat_from_euler_xyz": lambda m, a, b, v, s: m.quat_from_euler_xyz(
+        s, 0.5 * s, -s),
+    "quat_to_euler_xyz": lambda m, a, b, v, s: m.quat_to_euler_xyz(a),
+    "wrap_to_pi": lambda m, a, b, v, s: m.wrap_to_pi(4.0 * s),
+    "skew": lambda m, a, b, v, s: m.skew(v),
+}
+
+
+@pytest.mark.parametrize("name", sorted(QUAT_CASES))
+def test_quat_op_matches_jax(name):
+    """xyzw quaternion helpers, elementwise float32: atol 1e-6."""
+    rng = np.random.RandomState(0)
+    a, b = _quats(rng, 32), _quats(rng, 32)
+    v = rng.randn(32, 3).astype(np.float32)
+    s = rng.uniform(-3, 3, 32).astype(np.float32)
+    fn = QUAT_CASES[name]
+    got = fn(tq, *map(torch.from_numpy, (a, b, v, s)))
+    ref = fn(jq, *map(jnp.asarray, (a, b, v, s)))
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), atol=1e-6)
+
+
+def test_fk_and_sphere_positions_match_jax():
+    """fk_core + sphere_pos_core at the FK bar, atol 1e-5."""
+    rng = np.random.RandomState(5)
+    B = 16
+    st = random_state(rng, B)
+    jm = jax_load_robot("go1")
+    jst = _Static(jm, JaxEngineParams())
+    cols = lambda a: [jnp.asarray(a[:, i]) for i in range(a.shape[1])]
+    with jax.disable_jit():
+        bp, bq, an, ax = jax_fk_core(jst, cols(st["base_pos"]),
+                                     cols(st["base_quat"]),
+                                     cols(st["joint_q"]))
+        xp, _ = jax_sphere_pos_core(jst, bp, bq)
+    tm = load_robot("go1")
+    tbp, tbq, tan, tax = fk_core(tm, *(torch.from_numpy(st[k]) for k in (
+        "base_pos", "base_quat", "joint_q")))
+    txp, _ = sphere_pos_core(tm, tbp, tbq)
+    bc = lambda x: np.broadcast_to(np.asarray(x), (B,))
+    for ref, got in ((bp, tbp), (bq, tbq), (an, tan), (ax, tax)):
+        for i, comps in enumerate(ref):
+            for k, c in enumerate(comps):
+                np.testing.assert_allclose(got[:, i, k].numpy(), bc(c),
+                                           atol=1e-5)
+    for k in range(3):
+        np.testing.assert_allclose(txp[..., k].numpy().T, np.asarray(xp[k]),
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("terrain", ["flat", "rough"])
+def test_physics_step_batched_matches_jax(terrain):
+    """One substep with payload, CoM offset and an external acceleration:
+    state at 2e-4, contact forces and foot kinematics at 200x that."""
+    rng = np.random.RandomState(0)
+    B = 8
+    st = random_state(rng, B)
+    tau = (3.0 * rng.randn(B, 12)).astype(np.float32)
+    fric = np.linspace(0.3, 2.0, B).astype(np.float32)
+    rest = np.linspace(0.0, 0.4, B).astype(np.float32)
+    pay = np.linspace(-0.5, 2.0, B).astype(np.float32)
+    com = np.tile([[0.01, -0.005, 0.002]], (B, 1)).astype(np.float32)
+    ea = np.array([0.1, -0.2, 0.3], np.float32)
+    hts = (0.06 * np.random.RandomState(3).randn(80, 80)).astype(np.float32)
+    if terrain == "flat":
+        jhf, thf = jax_flat_heightfield(20.0, 0.5), flat_heightfield(20.0, 0.5)
+    else:
+        jhf = jax_make_hf(jnp.asarray(hts), 0.25, [-10.0, -10.0])
+        thf = make_heightfield(hts, 0.25, [-10.0, -10.0])
+    with jax.disable_jit():
+        js, ji = jax_step(
+            jax_load_robot("go1"), jhf, JaxEngineParams(),
+            JaxPhysicsState(**{k: jnp.asarray(v) for k, v in st.items()}),
+            jnp.asarray(tau), jnp.asarray(fric), jnp.asarray(rest),
+            payload_mass=jnp.asarray(pay), com_offset=jnp.asarray(com),
+            external_accel=jnp.asarray(ea), backend="xla")
+    T = torch.from_numpy
+    ts, ti = physics_step_batched(
+        load_robot("go1"), thf, EngineParams(),
+        PhysicsState(**{k: T(v) for k, v in st.items()}), T(tau), T(fric),
+        T(rest), payload_mass=T(pay), com_offset=T(com), external_accel=T(ea))
+    for n in STATE_FIELDS:
+        np.testing.assert_allclose(getattr(ts, n).numpy(),
+                                   np.asarray(getattr(js, n)), atol=2e-4,
+                                   err_msg=n)
+    for n in INFO_FIELDS:
+        np.testing.assert_allclose(getattr(ti, n).numpy(),
+                                   np.asarray(getattr(ji, n)),
+                                   atol=2e-4 * 200.0, err_msg=n)
+    assert float(ti.total_normal_force.max()) > 10.0   # contacts exercised
+
+
+def test_multistep_stability():
+    """100 substeps from standing under PD control stay finite and near
+    standing height (test_batched_multistep_stability)."""
+    B = 4
+    model = load_robot("go1")
+    hf = flat_heightfield(20.0, 0.5)
+    q0 = torch.tensor([0.0, 0.8, -1.6] * 4).expand(B, 12)
+    s = PhysicsState(base_pos=torch.tensor([0.0, 0.0, 0.32]).expand(B, 3),
+                     base_quat=torch.tensor([0.0, 0.0, 0.0, 1.0]).expand(B, 4),
+                     base_lin_vel=torch.zeros(B, 3),
+                     base_ang_vel=torch.zeros(B, 3), joint_q=q0.clone(),
+                     joint_qd=torch.zeros(B, 12))
+    for _ in range(100):
+        tau = 20.0 * (q0 - s.joint_q) - 0.5 * s.joint_qd
+        s, _ = physics_step_batched(model, hf, EngineParams(), s, tau,
+                                    torch.ones(B), torch.zeros(B))
+    assert torch.isfinite(s.base_pos).all()
+    assert bool((s.base_pos[:, 2] > 0.15).all())
+    assert bool((s.base_pos[:, 2] < 0.45).all())
+
+
+def test_cholesky_solve_matches_numpy():
+    """Batched env-minor Cholesky vs numpy's solve, float32: rtol 1e-4."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(6, 18, 18)
+    A = (X @ X.transpose(0, 2, 1) + 18 * np.eye(18)).astype(np.float32)
+    b = rng.randn(6, 18).astype(np.float32)
+    x = cholesky_solve(torch.from_numpy(A), torch.from_numpy(b)).numpy()
+    ref = np.linalg.solve(A.astype(np.float64), b.astype(np.float64)[..., None])
+    np.testing.assert_allclose(x, ref[..., 0], rtol=1e-4, atol=1e-5)
+
+
+def test_heightfield_matches_jax():
+    """Packed corner rows, flat detection and bilinear height: atol 1e-6."""
+    rng = np.random.RandomState(1)
+    hts = (0.1 * rng.randn(30, 40)).astype(np.float32)
+    jhf = jax_make_hf(jnp.asarray(hts), 0.1, [-1.5, -2.0])
+    thf = make_heightfield(hts, 0.1, [-1.5, -2.0])
+    np.testing.assert_array_equal(thf.corners.numpy(), np.asarray(jhf.corners))
+    assert thf.is_flat is False and flat_heightfield().is_flat is True
+    xy = rng.uniform(-2.5, 2.5, (64, 2)).astype(np.float32)
+    np.testing.assert_allclose(height_at(thf, torch.from_numpy(xy)).numpy(),
+                               np.asarray(jax_height_at(jhf, jnp.asarray(xy))),
+                               atol=1e-6)
+
+
+def test_hf_ceiling_is_not_ported():
+    model = load_robot("go1")
+    st = {k: torch.from_numpy(v) for k, v in
+          random_state(np.random.RandomState(0), 2).items()}
+    with pytest.raises(NotImplementedError):
+        physics_step_batched(model, flat_heightfield(), EngineParams(),
+                             PhysicsState(**st), torch.zeros(2, 12),
+                             torch.ones(2), torch.zeros(2),
+                             hf_ceiling=flat_heightfield())
+
+
+def test_model_struct_rejects_oversized_robot():
+    import dataclasses
+    model = load_robot("go1")
+    big = dict(model.static)
+    big["sph_body"] = np.zeros(K.MAX_SPHERES + 1, np.int32)
+    too_many = dataclasses.replace(model, static=big)
+    with pytest.raises(ValueError):
+        K.model_struct(too_many, EngineParams())
+
+
+# ---------------------------------------------------------------------------
+# the CUDA sources, built as plain C++, against the plain versions
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def host_kernels(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel sources")
+    so = str(tmp_path_factory.mktemp("host_kernels") / "libwtw_host.so")
+    subprocess.run([cxx, "-x", "c++", "-std=c++17", "-O2", "-shared",
+                    "-fPIC", "-o", so]
+                   + [os.path.join(K.CSRC, s) for s in K.SOURCES],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(so)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.wtw_model_bytes.restype = ci
+    lib.wtw_fk_host.argtypes = [vp] * 4 + [ci]
+    lib.wtw_dynamics_host.argtypes = [vp] * 7 + [cf, vp, ci]
+    assert lib.wtw_model_bytes() == ctypes.sizeof(K.WtwModel)
+    return lib
+
+
+def _host_inputs(B=64):
+    rng = np.random.RandomState(1)
+    model, params = load_robot("go1"), EngineParams()
+    st = PhysicsState(**{k: torch.from_numpy(v) for k, v in
+                         random_state(rng, B, z=0.30).items()})
+    tau = torch.from_numpy((3.0 * rng.randn(B, 12)).astype(np.float32))
+    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q], 1).T.contiguous()
+    raw = bytearray(bytes(K.model_struct(model, params)))
+    mbuf = (ctypes.c_char * len(raw)).from_buffer(raw)
+    return model, params, st, tau, fk_in, raw, mbuf
+
+
+def test_kernel_a_source_matches_plain(host_kernels):
+    """csrc/fk.cu built for the host vs fk_plain: atol 1e-5 (the FK bar)."""
+    model, params, st, tau, fk_in, raw, mbuf = _host_inputs()
+    ref_b, ref_p = K.fk_plain(model, fk_in)
+    got_b, got_p = torch.empty_like(ref_b), torch.empty_like(ref_p)
+    host_kernels.wtw_fk_host(ctypes.addressof(mbuf), fk_in.data_ptr(),
+                             got_b.data_ptr(), got_p.data_ptr(),
+                             fk_in.shape[1])
+    np.testing.assert_allclose(got_b.numpy(), ref_b.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got_p.numpy(), ref_p.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("terrain", ["flat", "rough"])
+def test_kernel_b_source_matches_plain(host_kernels, terrain):
+    """csrc/dynamics.cu built for the host vs dynamics_plain at the bars of
+    tests/test_physics_batched.py:157-159 (lin vel 1e-4, joint qd 1e-3,
+    foot forces 1e-1), positions at 1e-5."""
+    model, params, st, tau, fk_in, raw, mbuf = _host_inputs()
+    B = fk_in.shape[1]
+    fk_b, fk_p = K.fk_plain(model, fk_in)
+    if terrain == "flat":
+        hf = flat_heightfield(20.0, 0.5)
+    else:
+        hts = (0.06 * np.random.RandomState(3).randn(80, 80)).astype(np.float32)
+        hf = make_heightfield(hts, 0.25, [-10.0, -10.0])
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    hc, duv = hc.contiguous(), duv.contiguous()
+    env = torch.cat([torch.linspace(0.3, 2.0, B)[None],
+                     torch.linspace(0.0, 0.4, B)[None],
+                     torch.linspace(-0.5, 2.0, B)[None],
+                     torch.tensor([[0.01], [-0.005], [0.002]]).expand(3, B),
+                     torch.tensor([[0.1], [-0.2], [0.3]]).expand(3, B)],
+                    0).contiguous()
+    srows = pack_state_rows(st, tau)
+    args = (srows, fk_b, fk_p, hc, duv, env, 1.0 / hf.horizontal_scale)
+    ref = K.dynamics_plain(model, params, *args)
+    got = torch.empty_like(ref)
+    host_kernels.wtw_dynamics_host(
+        ctypes.addressof(mbuf), *(a.data_ptr() for a in args[:6]), args[6],
+        got.data_ptr(), B)
+    lay = K.dyn_out_layout(model.nj)
+    g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
+    tol = {"base_lin_vel": 1e-4, "joint_qd": 1e-3, "base_ang_vel": 1e-3,
+           "foot_forces": 1e-1, "thigh_contact": 1e-1, "calf_contact": 1e-1,
+           "base_contact": 1e-1, "total_normal_force": 1e-1,
+           "foot_velocities": 1e-4}
+    for k in g:
+        np.testing.assert_allclose(g[k].numpy(), r[k].numpy(),
+                                   atol=tol.get(k, 1e-5), err_msg=k)
+    assert float(r["total_normal_force"].max()) > 10.0

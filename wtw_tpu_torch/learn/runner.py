@@ -1,0 +1,184 @@
+"""Training driver (port of `wtw_tpu/learn/runner.py`; reference
+go1_gym_learn/ppo_cse/__init__.py Runner:107-296).
+
+Runs train iterations, writes one CSV row per logged iteration to
+`<run_dir>/metrics.csv`, and saves exact-resume checkpoints
+(`checkpoints/state_<tag>.pt`: learner, optimizers, env state and both
+generators) plus the deployment export `checkpoints/policy_<tag>.npz` in the
+JAX runner's key layout (`adaptation/w{i}`, `actor/b{i}`, ..., weights
+stored (in, out)), which `wtw_tpu/deploy/policy.py` loads unchanged.
+"""
+from __future__ import annotations
+
+import csv
+import dataclasses
+import os
+import time
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..models import actor_critic as ac
+from . import ppo_cse
+
+
+@dataclass
+class RunnerArgs:
+    log_freq: int = 10
+    save_interval: int = 400
+    run_dir: str = "runs/default"
+    resume: bool = False
+    resume_path: Optional[str] = None
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def world_blob(world) -> dict:
+    """WorldState -> a torch.save-able dict (the generator as its state)."""
+    return {"env": dataclasses.asdict(world.env),
+            "curriculum_weights": world.curriculum_weights,
+            "obs_history": world.obs_history,
+            "gravity_offset": world.gravity_offset,
+            "common_step": world.common_step,
+            "gen_state": world.gen.get_state()}
+
+
+def world_from_blob(blob: dict, device):
+    from ..envs.legged_env import EnvState, WorldState
+    from ..physics import PhysicsState
+    env = dict(blob["env"])
+    env["phys"] = PhysicsState(**env["phys"])
+    gen = torch.Generator(device=device)
+    gen.set_state(blob["gen_state"])
+    return WorldState(env=EnvState(**env),
+                      curriculum_weights=blob["curriculum_weights"],
+                      obs_history=blob["obs_history"],
+                      gravity_offset=blob["gravity_offset"],
+                      common_step=blob["common_step"], gen=gen)
+
+
+class Runner:
+    def __init__(self, env, args: ppo_cse.PPOArgs = ppo_cse.PPOArgs(),
+                 ac_args: ac.ACArgs = ac.ACArgs(),
+                 runner_args: RunnerArgs = RunnerArgs(), seed: int = 0):
+        self.env, self.args, self.runner_args = env, args, runner_args
+        self.world = env.init_state(seed)
+        self.world, self.obs_dict = env.get_observations(self.world)
+        self.ppo = ppo_cse.PPO(env, args, ac_args, seed=seed)
+        os.makedirs(os.path.join(runner_args.run_dir, "checkpoints"),
+                    exist_ok=True)
+        self._csv_path = os.path.join(runner_args.run_dir, "metrics.csv")
+        self._csv_keys = None
+        self.last_stats = None
+        if runner_args.resume and runner_args.resume_path:
+            self.load(runner_args.resume_path)
+
+    def learn(self, num_learning_iterations: int, log_fn=print):
+        """ppo_cse/__init__.py:107-229 analog. Returns the per-iteration
+        wall seconds (device work finished at the end of each)."""
+        ra, dev = self.runner_args, self.env.device
+        steps_per_iter = self.args.num_steps_per_env * self.env.num_envs
+        it0 = self.ppo.iteration
+        t_start = time.perf_counter()
+        walls = []
+        for it in range(it0, it0 + num_learning_iterations):
+            t0 = time.perf_counter()
+            self.world, self.obs_dict, stats = self.ppo.train_iteration(
+                self.world, self.obs_dict)
+            _sync(dev)
+            walls.append(time.perf_counter() - t0)
+            self.last_stats = stats
+            if it % ra.log_freq == 0 or it == it0 + num_learning_iterations - 1:
+                f = lambda k: float(stats[k])
+                row = {
+                    "iteration": it,
+                    "steps_per_s": steps_per_iter / walls[-1],
+                    "total_env_steps": (it + 1) * steps_per_iter,
+                    "wall_s": time.perf_counter() - t_start,
+                    "mean_step_reward": f("mean_step_reward"),
+                    "num_episodes": f("num_episodes"),
+                    "value_loss": f("value_loss"),
+                    "surrogate_loss": f("surrogate_loss"),
+                    "adaptation_loss": f("adaptation_loss"),
+                    "kl_mean": f("kl_mean"),
+                    "lr": f("lr"),
+                }
+                ep = stats["episode_reward_sums"].cpu().numpy()
+                for i, name in enumerate(self.env.reward_names):
+                    row[f"rew_{name}"] = float(ep[i])
+                row["rew_total"] = float(ep[-1])
+                self._write_csv(row)
+                log_fn(f"it {it:6d} | {row['steps_per_s']:.0f} steps/s | "
+                       f"rew {row['mean_step_reward']:.4f} | "
+                       f"ep_rew {row['rew_total']:.2f} | "
+                       f"vloss {row['value_loss']:.4f} | "
+                       f"adapt {row['adaptation_loss']:.5f}")
+            if ra.save_interval and it % ra.save_interval == 0 and it > 0:
+                self.save(it)
+        self.save("last")
+        return walls
+
+    def _write_csv(self, row):
+        new = self._csv_keys is None and not (
+            os.path.exists(self._csv_path)
+            and os.path.getsize(self._csv_path) > 0)
+        if self._csv_keys is None:
+            if not new:
+                with open(self._csv_path, newline="") as f:
+                    self._csv_keys = next(csv.reader(f))
+            else:
+                self._csv_keys = list(row.keys())
+        with open(self._csv_path, "a", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=self._csv_keys,
+                               extrasaction="ignore")
+            if new:
+                w.writeheader()
+            w.writerow(row)
+
+    def save(self, tag):
+        """Exact-resume checkpoint + deployment export."""
+        ck = os.path.join(self.runner_args.run_dir, "checkpoints")
+        path = os.path.join(ck, f"state_{tag}.pt")
+        p = self.ppo
+        torch.save({
+            "ac": p.ac.state_dict(), "opt": p.opt.state_dict(),
+            "adapt_opt": p.adapt_opt.state_dict(), "lr": p.lr,
+            "iteration": p.iteration, "gen_state": p.gen.get_state(),
+            "world": world_blob(self.world), "obs_dict": self.obs_dict,
+            "cfg": self.env.cfg}, path)
+        export = {}
+        for net in ("adaptation", "actor"):
+            lins = [m for m in getattr(p.ac, net)
+                    if isinstance(m, torch.nn.Linear)]
+            for i, lin in enumerate(lins):
+                export[f"{net}/w{i}"] = lin.weight.detach().T.cpu().numpy()
+                export[f"{net}/b{i}"] = lin.bias.detach().cpu().numpy()
+        np.savez(os.path.join(ck, f"policy_{tag}.npz"), **export)
+        return path
+
+    def load(self, path):
+        blob = torch.load(path, map_location=self.env.device,
+                          weights_only=False)
+        p = self.ppo
+        p.ac.load_state_dict(blob["ac"])
+        p.opt.load_state_dict(blob["opt"])
+        p.adapt_opt.load_state_dict(blob["adapt_opt"])
+        p.lr, p.iteration = blob["lr"], blob["iteration"]
+        p.gen.set_state(blob["gen_state"])
+        self.world = world_from_blob(blob["world"], self.env.device)
+        self.obs_dict = blob["obs_dict"]
+        return self
+
+    def get_inference_policy(self):
+        """Student policy fn(obs_history) -> actions."""
+        model = self.ppo.ac
+
+        @torch.no_grad()
+        def policy(obs_history):
+            return model.act_student(obs_history)[0]
+        return policy

@@ -1,0 +1,102 @@
+"""Where one training iteration's time goes on the GPU.
+
+    python -m wtw_tpu_torch.trace [--num-envs 4096] [--iterations 2]
+
+Builds go1_flat at full width through `train.build`, runs one warm-up
+iteration, then times the rollout and the update of each further iteration
+separately (host clock, each ending in `torch.cuda.synchronize()`), and
+profiles the last one with `torch.profiler`: device time by kernel (self
+time summed over launches), by group (the two physics kernels, matrix
+products, everything else), and the device's busy share of the iteration's
+wall time (one stream, so kernel times do not overlap). Prints one JSON
+line per result. Needs a CUDA device.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import tempfile
+import time
+
+import torch
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _group(name: str) -> str:
+    n = name.lower()
+    if "wtw_fk" in n:
+        return "kernel A (fk)"
+    if "wtw_dynamics" in n:
+        return "kernel B (dynamics)"
+    if "gemm" in n or "cutlass" in n or "sm90_" in n or "xmma" in n:
+        return "matrix products"
+    return "other kernels"
+
+
+def main(argv=None):
+    from .train import build
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--num-envs", type=int, default=4096)
+    ap.add_argument("--iterations", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    env, runner = build("go1_flat", args.num_envs, device="cuda",
+                        seed=args.seed, run_dir=tempfile.mkdtemp(),
+                        save_interval=0)
+    ppo = runner.ppo
+    world, obs = runner.world, runner.obs_dict
+
+    def iteration():
+        nonlocal world, obs
+        t0 = time.perf_counter()
+        world, obs, traj, _ = ppo.rollout(world, obs)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ppo.update(traj, obs)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    iteration()                                   # warm-up
+    split = [iteration() for _ in range(max(args.iterations - 1, 0))]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        split.append(iteration())
+        wall = time.perf_counter() - t0
+    # device-side events only; user annotations ("Optimizer.step#...")
+    # also appear on the device and would count their kernels twice
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and "#" not in e.key]
+    by_name = sorted(((_device_us(e), e.count, e.key) for e in kernels),
+                     reverse=True)
+    groups = {}
+    for us, count, key in by_name:
+        g = groups.setdefault(_group(key), [0.0, 0])
+        g[0] += us
+        g[1] += count
+    busy_s = sum(us for us, _, _ in by_name) / 1e6
+    name = torch.cuda.get_device_name(0)
+    print(json.dumps({"device": name, "num_envs": env.num_envs,
+                      "rollout_s": [r for r, _ in split],
+                      "update_s": [u for _, u in split]}))
+    print(json.dumps({"profiled_wall_s": wall, "device_busy_s": busy_s,
+                      "device_busy_share": busy_s / wall,
+                      "groups": {k: {"device_ms": v[0] / 1e3, "launches": v[1]}
+                                 for k, v in groups.items()}}))
+    print(json.dumps({"top_kernels": [
+        {"name": key[:90], "device_ms": us / 1e3, "launches": count}
+        for us, count, key in by_name[:15]]}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,84 @@
+"""Train a quadruped locomotion policy with the PyTorch/CUDA port (the
+counterpart of `scripts/train.py`):
+
+    python -m wtw_tpu_torch.train --preset go1_flat --num-envs 4096 --iterations 100
+
+Runs on the CUDA device unless `--device cpu` is given. Presets the port
+does not support yet raise.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+import torch
+
+from . import config as C
+from . import resolve_device
+
+SUPPORTED_PRESETS = ("go1_flat",)
+
+
+def build(preset: str, num_envs=None, overrides=(), device=None, seed=0,
+          run_dir=None, log_freq=10, save_interval=400):
+    """(env, Runner) for a preset; `overrides` are `section.field=value`
+    strings routed like scripts/train.py: `ppo.*` to PPOArgs, `runner.*` to
+    RunnerArgs, `ac.*` to ACArgs, the rest to the Cfg tree."""
+    from .envs import make_legged_env
+    from .learn import PPOArgs, Runner, RunnerArgs
+    from .models.actor_critic import ACArgs
+
+    if preset not in SUPPORTED_PRESETS:
+        raise NotImplementedError(
+            f"preset {preset!r} is not ported yet (supported: "
+            f"{', '.join(SUPPORTED_PRESETS)})")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        # true fp32 everywhere: TF32 is below the engine's precision
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    cfg = C.PRESETS[preset]()
+    if num_envs:
+        cfg = dataclasses.replace(
+            cfg, env=dataclasses.replace(cfg.env, num_envs=num_envs))
+    pick = lambda pre: [s[len(pre):] for s in overrides if s.startswith(pre)]
+    cfg = C.apply_overrides(cfg, [s for s in overrides if not s.startswith(
+        ("ppo.", "runner.", "ac."))])
+    ppo_args = C.apply_overrides(PPOArgs(), pick("ppo."))
+    ac_args = C.apply_overrides(ACArgs(), pick("ac."))
+    runner_args = C.apply_overrides(
+        RunnerArgs(run_dir=run_dir or f"runs/{preset}/seed{seed}",
+                   log_freq=log_freq, save_interval=save_interval),
+        pick("runner."))
+    env = make_legged_env(cfg, device=dev)
+    runner = Runner(env, ppo_args, ac_args=ac_args, runner_args=runner_args,
+                    seed=seed)
+    return env, runner
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", default="go1_flat",
+                    choices=sorted(C.PRESETS))
+    ap.add_argument("--num-envs", type=int, default=None)
+    ap.add_argument("--iterations", type=int, default=1000)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--run-dir", default=None)
+    ap.add_argument("--log-freq", type=int, default=10)
+    ap.add_argument("--save-interval", type=int, default=400)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    ap.add_argument("--set", action="append", default=[], metavar="K=V",
+                    help="config override, e.g. --set ppo.learning_rate=5e-4")
+    args = ap.parse_args(argv)
+    env, runner = build(args.preset, args.num_envs, args.set, args.device,
+                        args.seed, args.run_dir, args.log_freq,
+                        args.save_interval)
+    print(f"preset={args.preset} robot={env.cfg.asset.robot} "
+          f"envs={env.num_envs} obs={env.num_obs} device={env.device} -> "
+          f"{runner.runner_args.run_dir}")
+    runner.learn(args.iterations)
+
+
+if __name__ == "__main__":
+    main()
