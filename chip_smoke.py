@@ -15,7 +15,19 @@ Phases, each printing one JSON line with its seconds:
 6. training: go1_flat at full width (4096 envs, actor/critic 512-256-128,
    adaptation 256-128, 24 steps x 4 substeps per iteration) for 1 warm-up
    and 3 measured iterations; each kernel's launch count over the measured
-   iterations must be iterations x 24 x 4.
+   iterations must be iterations x 24 x 4;
+7. kernel_a_go2: kernel A against its plain version on Go2 (51 spheres) at
+   4096 envs;
+8. kernel_b_ceiling: kernel B against its plain version on Go2 at 4096 envs
+   over rough ground under a rough ceiling that some spheres touch (the
+   phase fails if none does), timed with and without the ceiling pass;
+9. parkour_rollout: 100 substeps of Go2 under PD from standing under the
+   crawl barriers of the full parkour course, through both kernels with
+   both heightfields: finite, base height over the ground in (0.05, 0.45);
+10. parkour_training: Go2 parkour with CaT at full width
+   (`wtw_tpu_torch.train_parkour`: 4096 envs, the full 10 x 20 course,
+   actor/critic 189-512-256-128) for 1 warm-up and 3 measured iterations;
+   each kernel's launch count must grow by exactly iterations x 24 x 4.
 
 Then the kernels line, the nvidia-smi line, and the result line. Exits
 non-zero, with no result line, when there is no CUDA device, when the port
@@ -71,8 +83,13 @@ def cuda_ms(fn, iters=20, warmup=3):
     return e0.elapsed_time(e1) / iters
 
 
-def random_states(rng, n, device, z=0.30):
-    """Random near-standing go1 states (tests/test_physics_batched.py:19-39)."""
+STAND_Q = {"go1": [0.0, 0.8, -1.6] * 4,
+           "go2": [0.1, 0.8, -1.5, -0.1, 0.8, -1.5,
+                   0.1, 1.0, -1.5, -0.1, 1.0, -1.5]}
+
+
+def random_states(rng, n, device, z=0.30, q0=STAND_Q["go1"]):
+    """Random near-standing states (tests/test_physics_batched.py:19-39)."""
     from wtw_tpu_torch.physics import PhysicsState
     t = lambda x: torch.tensor(np.asarray(x, np.float32), device=device)
     q = rng.randn(n, 4) * 0.1 + np.array([0.0, 0.0, 0.0, 1.0])
@@ -82,8 +99,7 @@ def random_states(rng, n, device, z=0.30):
         base_quat=t(q / np.linalg.norm(q, axis=1, keepdims=True)),
         base_lin_vel=t(0.5 * rng.randn(n, 3)),
         base_ang_vel=t(0.5 * rng.randn(n, 3)),
-        joint_q=t(np.tile([0.0, 0.8, -1.6] * 4, (n, 1))
-                  + 0.1 * rng.randn(n, 12)),
+        joint_q=t(np.tile(q0, (n, 1)) + 0.1 * rng.randn(n, 12)),
         joint_qd=t(0.5 * rng.randn(n, 12)))
 
 
@@ -95,17 +111,20 @@ def fk_flops(model) -> int:
     return model.nj * (2 * 30 + 2 * 28 + 8) + model.nb * 30 + model.P * 18
 
 
-def dynamics_flops(model, active_spheres_per_env: float) -> float:
+def dynamics_flops(model, active_spheres_per_env: float,
+                   ceiling: bool = False) -> float:
     """fp32 operations of kernel B per env, counted from csrc/dynamics.cu.
     Fixed part: axes and velocities (24/joint), inertias (~180/body), RNEA
     (45/joint + 117/body), composites and CRBA (~150/joint), rhs (2 nv^2),
-    sphere geometry in both passes (~70/sphere), Cholesky (nv^3/3 fma) and
-    the two solves (2 nv^2), integration and feet (~250). Per touching
-    sphere with its na ancestor dofs: 12 na + 10 na^2 + 60 (rank update)
-    and 15 na + 40 (realized force)."""
+    ground geometry in both contact loops (~70/sphere; the ceiling pass's
+    depth is 3/sphere in each loop), Cholesky (nv^3/3 fma) and the two
+    solves (2 nv^2), integration and feet (~250). Per touching sphere,
+    ground or ceiling, with its na ancestor dofs: 12 na + 10 na^2 + 60
+    (rank update) and 15 na + 40 (realized force)."""
     nb, nj, nv, P = model.nb, model.nj, model.nv, model.P
     fixed = (24 * nj + 180 * nb + 45 * nj + 117 * nb + 150 * nj
-             + 2 * nv * nv + 70 * P + 2 * nv ** 3 / 3 + 2 * nv * nv + 250)
+             + 2 * nv * nv + 70 * P + 2 * nv ** 3 / 3 + 2 * nv * nv + 250
+             + (6 * P if ceiling else 0))
     na = 9
     per_sphere = 12 * na + 10 * na * na + 60 + 15 * na + 40
     return fixed + per_sphere * active_spheres_per_env
@@ -120,7 +139,7 @@ def bound_ms(n_bytes: float, n_flops: float):
 def phase_kernel_a(model, dev):
     from wtw_tpu_torch.physics import kernels as K
     rng = np.random.RandomState(SEED)
-    st = random_states(rng, B, dev)
+    st = random_states(rng, B, dev, q0=STAND_Q[model.name.split("_")[0]])
     fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q],
                       1).T.contiguous()
     fb, fp = K.fk(model, fk_in)
@@ -142,48 +161,24 @@ def phase_kernel_b(model, dev):
     from wtw_tpu_torch.physics import (EngineParams, flat_heightfield,
                                        make_heightfield)
     from wtw_tpu_torch.physics import kernels as K
-    from wtw_tpu_torch.physics.batched import _hf_rows, pack_state_rows
-    rng = np.random.RandomState(SEED + 1)
+    from wtw_tpu_torch.physics.batched import _hf_rows
     params = EngineParams()
-    st = random_states(rng, B, dev)
-    tau = torch.tensor(3.0 * rng.randn(B, 12).astype(np.float32), device=dev)
-    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q],
-                      1).T.contiguous()
-    fk_b, fk_p = K.fk_plain(model, fk_in)
-    lin = lambda a, b: torch.linspace(a, b, B, device=dev)[None]
-    col = lambda v: torch.tensor(v, device=dev)[:, None].expand(3, B)
-    env = torch.cat([lin(0.3, 2.0), lin(0.0, 0.4), lin(-0.5, 2.0),
-                     col([0.01, -0.005, 0.002]), col([0.1, -0.2, 0.3])],
-                    0).contiguous()
+    srows, fk_b, fk_p, env = _dyn_case(model, dev,
+                                       np.random.RandomState(SEED + 1))
     rough = (0.06 * np.random.RandomState(3).randn(80, 80)).astype(np.float32)
     out = {}
     for terrain, hf in (("flat", flat_heightfield(20.0, 0.5, device=dev)),
                         ("rough", make_heightfield(rough, 0.25, [-10.0, -10.0],
                                                    device=dev))):
         hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
-        args = (model, params, pack_state_rows(st, tau), fk_b, fk_p,
-                hc.contiguous(), duv.contiguous(), env,
-                1.0 / hf.horizontal_scale)
+        args = (model, params, srows, fk_b, fk_p, hc.contiguous(),
+                duv.contiguous(), env, 1.0 / hf.horizontal_scale)
         got = K.dynamics(*args)
         ref = K.dynamics_plain(*args)
         torch.cuda.synchronize()
-        lay = K.dyn_out_layout(model.nj)
-        g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
-        errs = {k: float((g[k] - r[k]).abs().max()) for k in g}
-        bad = {k: e for k, e in errs.items() if not e <= DYN_TOL[k]}
-        if bad:
-            raise AssertionError(f"kernel B differs from its plain version "
-                                 f"on {terrain} ground: {bad}")
+        errs = _compare_dyn(K, model, got, ref, f"on {terrain} ground")
         # touching spheres in this run's data: depth along the normal > 0
-        (h00, h10, h01, h11), (du, dv) = hc, duv
-        h = (h00 * (1 - du) * (1 - dv) + h10 * du * (1 - dv)
-             + h01 * (1 - du) * dv + h11 * du * dv)
-        inv_s = 1.0 / hf.horizontal_scale
-        dhdx = ((h10 - h00) * (1 - dv) + (h11 - h01) * dv) * inv_s
-        dhdy = ((h01 - h00) * (1 - du) + (h11 - h10) * du) * inv_s
-        depth = ((h - fk_p[2]) * torch.rsqrt(dhdx ** 2 + dhdy ** 2 + 1)
-                 + model.sph_radius[:, None])
-        active = float((depth > 0).float().sum(0).mean())
+        active = _ground_touching(model, hf, hc, duv, fk_p)
         n_bytes = 4 * (sum(a.numel() for a in args[2:8]) + got.numel())
         bms, by = bound_ms(n_bytes, dynamics_flops(model, active) * B)
         out[terrain] = dict(
@@ -228,6 +223,223 @@ def phase_rollout(model, dev, substeps=100):
                              f"launches={launched}")
     return dict(substeps=substeps, z_min=float(z.min()), z_max=float(z.max()),
                 launches=launched)
+
+
+def _dyn_case(model, dev, rng, z=0.30):
+    """Kernel B's inputs at B envs from random near-standing states."""
+    from wtw_tpu_torch.physics import kernels as K
+    from wtw_tpu_torch.physics.batched import pack_state_rows
+    st = random_states(rng, B, dev, z=z, q0=STAND_Q[model.name.split("_")[0]])
+    tau = torch.tensor(3.0 * rng.randn(B, 12).astype(np.float32), device=dev)
+    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q],
+                      1).T.contiguous()
+    fk_b, fk_p = K.fk_plain(model, fk_in)
+    lin = lambda a, b: torch.linspace(a, b, B, device=dev)[None]
+    col = lambda v: torch.tensor(v, device=dev)[:, None].expand(3, B)
+    env = torch.cat([lin(0.3, 2.0), lin(0.0, 0.4), lin(-0.5, 2.0),
+                     col([0.01, -0.005, 0.002]), col([0.1, -0.2, 0.3])],
+                    0).contiguous()
+    return pack_state_rows(st, tau), fk_b, fk_p, env
+
+
+def _ground_touching(model, hf, hc, duv, fk_p) -> float:
+    """Spheres per env whose depth along the ground normal is > 0."""
+    (h00, h10, h01, h11), (du, dv) = hc, duv
+    h = (h00 * (1 - du) * (1 - dv) + h10 * du * (1 - dv)
+         + h01 * (1 - du) * dv + h11 * du * dv)
+    inv_s = 1.0 / hf.horizontal_scale
+    dhdx = ((h10 - h00) * (1 - dv) + (h11 - h01) * dv) * inv_s
+    dhdy = ((h01 - h00) * (1 - du) + (h11 - h10) * du) * inv_s
+    depth = ((h - fk_p[2]) * torch.rsqrt(dhdx ** 2 + dhdy ** 2 + 1)
+             + model.sph_radius[:, None])
+    return float((depth > 0).float().sum(0).mean())
+
+
+def _compare_dyn(K, model, got, ref, what):
+    lay = K.dyn_out_layout(model.nj)
+    g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
+    errs = {k: float((g[k] - r[k]).abs().max()) for k in g}
+    bad = {k: e for k, e in errs.items() if not e <= DYN_TOL[k]}
+    if bad:
+        raise AssertionError(f"kernel B differs from its plain version "
+                             f"{what}: {bad}")
+    return errs
+
+
+def phase_kernel_b_ceiling(model, dev):
+    """Go2 over rough ground under a rough ceiling at 0.36 +- 0.02 m: the
+    base's top spheres (0.077 m above a base at 0.25-0.40 m) reach it."""
+    from wtw_tpu_torch.physics import make_heightfield
+    from wtw_tpu_torch.physics import kernels as K
+    from wtw_tpu_torch.physics.batched import _hf_height, _hf_rows
+    params = K.EngineParams()
+    srows, fk_b, fk_p, env = _dyn_case(model, dev,
+                                       np.random.RandomState(SEED + 2))
+    ground = (0.03 * np.random.RandomState(3).randn(80, 80)).astype(
+        np.float32)
+    ceil = (0.36 + 0.02 * np.random.RandomState(5).randn(80, 80)).astype(
+        np.float32)
+    hf = make_heightfield(ground, 0.25, [-10.0, -10.0], device=dev)
+    hf_c = make_heightfield(ceil, 0.25, [-10.0, -10.0], device=dev)
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    ceil_h = _hf_height(hf_c, fk_p[0], fk_p[1]).contiguous()
+    args = (model, params, srows, fk_b, fk_p, hc.contiguous(),
+            duv.contiguous(), env, 1.0 / hf.horizontal_scale)
+    got = K.dynamics(*args, ceil_h=ceil_h)
+    ref = K.dynamics_plain(*args, ceil_h=ceil_h)
+    torch.cuda.synchronize()
+    errs = _compare_dyn(K, model, got, ref, "under the ceiling")
+    touching_c = float((fk_p[2] + model.sph_radius[:, None] > ceil_h)
+                       .float().sum(0).mean())
+    if not touching_c > 0:
+        raise AssertionError("no sphere touches the ceiling: the ceiling "
+                             "pass would be compared vacuously")
+    touching_g = _ground_touching(model, hf, hc, duv, fk_p)
+    n_bytes = 4 * (sum(a.numel() for a in args[2:8]) + ceil_h.numel()
+                   + got.numel())
+    bms, by = bound_ms(n_bytes, dynamics_flops(
+        model, touching_g + touching_c, ceiling=True) * B)
+    n_bytes0 = n_bytes - 4 * ceil_h.numel()
+    bms0, by0 = bound_ms(n_bytes0, dynamics_flops(model, touching_g) * B)
+    return dict(
+        max_abs_err=max(errs.values()), errors=errs,
+        ms=cuda_ms(lambda: K.dynamics(*args, ceil_h=ceil_h)),
+        no_ceiling_ms=cuda_ms(lambda: K.dynamics(*args)),
+        plain_ms=cuda_ms(lambda: K.dynamics_plain(*args, ceil_h=ceil_h),
+                         iters=5),
+        bound_ms=bms, bound_by=by, bytes=n_bytes,
+        no_ceiling_bound_ms=bms0, no_ceiling_bound_by=by0,
+        touching_ceiling_spheres_per_env=touching_c,
+        touching_ground_spheres_per_env=touching_g)
+
+
+def phase_parkour_rollout(model, dev, substeps=100):
+    """100 substeps under PD from standing under the crawl barriers of the
+    full parkour course (`build_parkour` at its defaults, seed 0), corner
+    rows cached over each group of 4 substeps as in the env."""
+    from wtw_tpu_torch.envs.parkour_env import GO2_DEFAULT_JOINT_ANGLES
+    from wtw_tpu_torch.models.robot import default_joint_angles
+    from wtw_tpu_torch.physics import (EngineParams, PhysicsState,
+                                       physics_step_batched)
+    from wtw_tpu_torch.physics import kernels as K
+    from wtw_tpu_torch.physics.batched import _hf_height
+    from wtw_tpu_torch.physics.heightfield import height_at
+    from wtw_tpu_torch.terrain import (ParkourTerrainCfg, build_parkour,
+                                       ceiling_heightfield, to_heightfield)
+    from wtw_tpu_torch.train_parkour import column_kinds
+    tcfg = ParkourTerrainCfg()
+    tm = build_parkour(tcfg, seed=SEED)
+    hf, hf_c = to_heightfield(tm, dev), ceiling_heightfield(tm, dev)
+    crawl = column_kinds(tcfg)["crawl"]
+    e = torch.arange(B, device=dev)
+    lvl = e % tcfg.num_levels
+    col = torch.tensor(crawl, device=dev)[(e // tcfg.num_levels) % len(crawl)]
+    jit = torch.rand(B, 2, generator=torch.Generator(device=dev).manual_seed(
+        SEED), device=dev) - 0.5
+    # over the first barrier (x in [2, 3) m of each track), base at 0.30 m
+    x = lvl * tcfg.map_length + 2.5 + 0.6 * jit[:, 0]
+    y = (col + 0.5) * tcfg.map_width + 0.6 * jit[:, 1]
+    q0 = default_joint_angles(model, dict(GO2_DEFAULT_JOINT_ANGLES))
+    s = PhysicsState(
+        base_pos=torch.stack([x, y, torch.full_like(x, 0.30)], -1),
+        base_quat=torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).expand(B, 4),
+        base_lin_vel=torch.zeros(B, 3, device=dev),
+        base_ang_vel=torch.zeros(B, 3, device=dev),
+        joint_q=q0.expand(B, 12).clone(),
+        joint_qd=torch.zeros(B, 12, device=dev))
+    fk_in = torch.cat([s.base_pos, s.base_quat, s.joint_q], 1).T.contiguous()
+    _, fk_p = K.fk_plain(model, fk_in)
+    touching = float((fk_p[2] + model.sph_radius[:, None]
+                      > _hf_height(hf_c, fk_p[0], fk_p[1]))
+                     .float().sum(0).mean())
+    ones = torch.ones(B, device=dev)
+    before = (K.FK.launches, K.DYNAMICS.launches)
+    cache = None
+    for i in range(substeps):
+        tau = 20.0 * (q0 - s.joint_q) - 0.5 * s.joint_qd
+        if i % 4 == 0:
+            s, _, cache = physics_step_batched(
+                model, hf, EngineParams(), s, tau, ones, 0.0,
+                hf_ceiling=hf_c, return_hf_cache=True)
+        else:
+            s, _ = physics_step_batched(model, hf, EngineParams(), s, tau,
+                                        ones, 0.0, hf_ceiling=hf_c,
+                                        hf_cache=cache)
+    torch.cuda.synchronize()
+    rel_z = s.base_pos[:, 2] - height_at(hf, s.base_pos[:, :2])
+    finite = all(bool(torch.isfinite(getattr(s, f)).all()) for f in (
+        "base_pos", "base_quat", "base_lin_vel", "base_ang_vel", "joint_q",
+        "joint_qd"))
+    launched = (K.FK.launches - before[0], K.DYNAMICS.launches - before[1])
+    if not (finite and bool((rel_z > 0.05).all())
+            and bool((rel_z < 0.45).all()) and touching > 0
+            and launched == (substeps, substeps)):
+        raise AssertionError(
+            f"parkour roll-out failed: finite={finite} base height in "
+            f"[{float(rel_z.min())}, {float(rel_z.max())}] touching "
+            f"ceiling at start={touching} launches={launched}")
+    return dict(substeps=substeps, heightfield_cells=hf.heights.numel(),
+                touching_ceiling_spheres_per_env_at_start=touching,
+                base_height_min=float(rel_z.min()),
+                base_height_max=float(rel_z.max()), launches=launched)
+
+
+def phase_parkour_training(device="cuda", num_envs=B, iterations=3, warmup=1,
+                           overrides=()):
+    """Go2 parkour through the port's entry points
+    (`wtw_tpu_torch.train_parkour.build` and `ParkourRunner.learn`), at the
+    full course unless `overrides` cut it. Counts are set to 0 after the
+    warm-up, just before the measured iterations, and read just after."""
+    from wtw_tpu_torch.physics import kernels as K
+    from wtw_tpu_torch.train_parkour import build
+    dev = torch.device(device)
+    run_dir = tempfile.mkdtemp(prefix="wtw_chip_smoke_parkour_")
+    try:
+        t0 = time.perf_counter()
+        runner = build(num_envs, list(overrides), dev, seed=SEED,
+                       run_dir=run_dir, log_freq=1, save_interval=0)
+        build_s = time.perf_counter() - t0
+        env, ln = runner.env, runner.learner
+        quiet = lambda *a: None
+        warm_walls = runner.learn(warmup, log_fn=quiet) if warmup else []
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for k in K.KERNELS:
+            k.launches = 0
+        walls = runner.learn(iterations, log_fn=quiet)
+        launches = {k.name: k.launches for k in K.KERNELS}
+        stats = runner.last_stats
+        losses = {k: float(stats[k]) for k in (
+            "loss", "pg_loss", "value_loss")}
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite losses: {losses}")
+        steps = ln.args.num_steps * env.num_envs
+        expected = iterations * ln.args.num_steps * env.cfg.decimation
+        return dict(
+            num_envs=env.num_envs, num_obs=env.num_obs,
+            heightfield_shape=list(env.hf.shape),
+            ceiling_flat=env.hf_ceiling.is_flat, build_s=build_s,
+            iterations=iterations, warmup_wall_s=warm_walls,
+            iteration_wall_s=walls,
+            env_steps_per_s=[steps / w for w in walls],
+            max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+            losses=losses, launches=launches,
+            expected_launches_per_kernel=expected,
+            terrain_level_mean=float(stats["terrain_level_mean"]),
+            mean_step_reward=float(stats["mean_step_reward"]))
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def _check_launches(name, rec):
+    """Each kernel of the path launched exactly iterations x 24 x 4 times
+    in the measured iterations."""
+    exp = rec["expected_launches_per_kernel"]
+    off = {k: n for k, n in rec["launches"].items() if n != exp}
+    if off:
+        raise AssertionError(f"{name}: kernels launched other than {exp} "
+                             f"times in the measured iterations: {off}")
 
 
 def phase_training(device="cuda", num_envs=B, iterations=3, warmup=1,
@@ -317,31 +529,54 @@ def main() -> int:
     t0 = time.perf_counter()
     tr = phase_training()
     emit({"phase": "training", **tr, "seconds": time.perf_counter() - t0})
-    exp = tr["expected_launches_per_kernel"]
-    short = {k: n for k, n in tr["launches"].items() if n < exp}
-    if short:
-        raise AssertionError(f"kernels launched fewer than {exp} times in "
-                             f"training: {short}")
-    if any(n != exp for n in tr["launches"].values()):
-        emit({"other_launches": {k: n - exp for k, n in
-                                 tr["launches"].items()}})
+    _check_launches("go1_flat training", tr)
+
+    go2 = load_robot("go2", device=dev)
+    for phase, fn in (("kernel_a_go2", phase_kernel_a),
+                      ("kernel_b_ceiling", phase_kernel_b_ceiling),
+                      ("parkour_rollout", phase_parkour_rollout)):
+        t0 = time.perf_counter()
+        results[phase] = fn(go2, dev)
+        emit({"phase": phase, **results[phase],
+              "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    pk = phase_parkour_training()
+    emit({"phase": "parkour_training", **pk,
+          "seconds": time.perf_counter() - t0})
+    _check_launches("parkour training", pk)
 
     ka, kb = results["kernel_a"], results["kernel_b"]
+    ka2, kc = results["kernel_a_go2"], results["kernel_b_ceiling"]
     worst_b = max(kb.values(), key=lambda r: r["max_abs_err"])
+    by_path = lambda name: {"go1_flat": tr["launches"][name],
+                            "parkour": pk["launches"][name]}
     kernels = [
         dict(name=K.FK.name, route="cuda", source=K.FK.source,
-             replaces=K.FK.replaces, launches=tr["launches"][K.FK.name],
-             max_abs_err=ka["max_abs_err"], tolerance=ka["tolerance"],
-             ms=ka["ms"], kernel_ms=ka["ms"], plain_ms=ka["plain_ms"],
-             bound_ms=ka["bound_ms"], bound_by=ka["bound_by"],
-             library_ms=None),
+             replaces=K.FK.replaces, launches=pk["launches"][K.FK.name],
+             launches_by_path=by_path(K.FK.name),
+             max_abs_err=max(ka["max_abs_err"], ka2["max_abs_err"]),
+             tolerance=ka["tolerance"],
+             ms=ka2["ms"], kernel_ms=ka2["ms"], plain_ms=ka2["plain_ms"],
+             bound_ms=ka2["bound_ms"], bound_by=ka2["bound_by"],
+             go1_ms=ka["ms"], go1_plain_ms=ka["plain_ms"],
+             go1_bound_ms=ka["bound_ms"], library_ms=None),
         dict(name=K.DYNAMICS.name, route="cuda", source=K.DYNAMICS.source,
              replaces=K.DYNAMICS.replaces,
-             launches=tr["launches"][K.DYNAMICS.name],
-             max_abs_err=worst_b["max_abs_err"], tolerance=DYN_TOL,
-             ms=kb["flat"]["ms"], kernel_ms=kb["flat"]["ms"],
-             plain_ms=kb["flat"]["plain_ms"],
-             bound_ms=kb["flat"]["bound_ms"], bound_by=kb["flat"]["bound_by"],
+             launches=pk["launches"][K.DYNAMICS.name],
+             launches_by_path=by_path(K.DYNAMICS.name),
+             max_abs_err=max(worst_b["max_abs_err"], kc["max_abs_err"]),
+             tolerance=DYN_TOL,
+             ms=kc["ms"], kernel_ms=kc["ms"], plain_ms=kc["plain_ms"],
+             bound_ms=kc["bound_ms"], bound_by=kc["bound_by"],
+             ceiling_ms=kc["ms"], ceiling_max_abs_err=kc["max_abs_err"],
+             ceiling_bound_ms=kc["bound_ms"],
+             touching_ceiling_spheres_per_env=kc[
+                 "touching_ceiling_spheres_per_env"],
+             go2_no_ceiling_ms=kc["no_ceiling_ms"],
+             go2_no_ceiling_bound_ms=kc["no_ceiling_bound_ms"],
+             flat_ms=kb["flat"]["ms"], flat_plain_ms=kb["flat"]["plain_ms"],
+             flat_bound_ms=kb["flat"]["bound_ms"],
              rough_ms=kb["rough"]["ms"], library_ms=None),
     ]
     emit({"kernels": kernels})

@@ -1,8 +1,9 @@
 """The port stands alone: no module of wtw_tpu_torch, and not chip_smoke.py,
 imports jax, flax, optax or the JAX package (the GPU machine has none of
 them). A subprocess blocks those names with a meta-path finder, imports
-every module of the port and chip_smoke, and runs chip_smoke's training
-phase on the CPU at 16 envs, 1 iteration and narrow widths.
+every module of the port and chip_smoke, and runs chip_smoke's two
+training phases (go1_flat, and Go2 parkour on a 3 x 5 course) on the CPU
+at 16 envs, 1 iteration and narrow widths.
 """
 import json
 import os
@@ -34,9 +35,14 @@ rec = chip_smoke.phase_training(
     "cpu", num_envs=16, iterations=1, warmup=0,
     overrides=["ac.actor_hidden_dims=32,16", "ac.critic_hidden_dims=32,16",
                "ac.adaptation_hidden_dims=16"])
+pk = chip_smoke.phase_parkour_training(
+    "cpu", num_envs=16, iterations=1, warmup=0,
+    overrides=["terrain.num_levels=3", "terrain.num_terrains=5",
+               "terrain.border_size=4.0", "ppo.hidden=32,16"])
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": names, "leaked": leaked,
-                  "losses": rec["losses"], "launches": rec["launches"]}))
+                  "losses": rec["losses"], "launches": rec["launches"],
+                  "parkour": pk}))
 """
 
 
@@ -48,8 +54,17 @@ def test_port_imports_no_jax_and_trains_on_cpu():
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert out["leaked"] == []
     for mod in ("wtw_tpu_torch.physics.kernels", "wtw_tpu_torch.train",
-                "wtw_tpu_torch.convert", "wtw_tpu_torch.learn.runner"):
+                "wtw_tpu_torch.convert", "wtw_tpu_torch.learn.runner",
+                "wtw_tpu_torch.terrain", "wtw_tpu_torch.terrain.parkour",
+                "wtw_tpu_torch.terrain.generators",
+                "wtw_tpu_torch.envs.parkour_env",
+                "wtw_tpu_torch.envs.constraints",
+                "wtw_tpu_torch.learn.cat_ppo", "wtw_tpu_torch.train_parkour"):
         assert mod in out["modules"]
-    assert all(abs(v) < 1e6 for v in out["losses"].values())
+    pk = out["parkour"]
+    for losses in (out["losses"], pk["losses"]):
+        assert all(abs(v) < 1e6 for v in losses.values())
+    assert pk["num_obs"] == 189 and not pk["ceiling_flat"]
     # the CPU path runs the plain versions: no kernel launches
     assert out["launches"] == {"fk": 0, "dynamics": 0}
+    assert pk["launches"] == {"fk": 0, "dynamics": 0}

@@ -20,7 +20,8 @@ from wtw_tpu_torch.physics import (EngineParams, PhysicsState,
                                    flat_heightfield, make_heightfield,
                                    physics_step_batched)
 from wtw_tpu_torch.physics import kernels as K
-from wtw_tpu_torch.physics.batched import _hf_rows, pack_state_rows
+from wtw_tpu_torch.physics.batched import (_hf_height, _hf_rows,
+                                           pack_state_rows)
 
 pytestmark = pytest.mark.gpu
 
@@ -85,6 +86,43 @@ def test_kernel_b_matches_plain(terrain):
     got = K.dynamics(*args)
     assert K.DYNAMICS.launches == n0 + 1
     ref = K.dynamics_plain(*args)
+    lay = K.dyn_out_layout(model.nj)
+    g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
+    tol = {"base_lin_vel": 1e-4, "joint_qd": 1e-3, "base_ang_vel": 1e-3,
+           "foot_forces": 1e-1, "thigh_contact": 1e-1, "calf_contact": 1e-1,
+           "base_contact": 1e-1, "total_normal_force": 1e-1,
+           "foot_velocities": 1e-4}
+    for k in g:
+        torch.testing.assert_close(g[k], r[k], rtol=0, atol=tol.get(k, 1e-5),
+                                   msg=k)
+
+
+def test_kernel_b_with_ceiling_matches_plain():
+    """Go2 (51 spheres) over rough ground under a rough ceiling at
+    0.36 +- 0.02 m that some spheres touch (asserted), at the bars above."""
+    dev = _device()
+    model = load_robot("go2", device=dev)
+    st, tau = _states(dev, 2)
+    st.joint_q += torch.tensor([0.1, 0.0, 0.1, -0.1, 0.0, 0.1,
+                                0.1, 0.2, 0.1, -0.1, 0.2, 0.1], device=dev)
+    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q], 1).T.contiguous()
+    fk_b, fk_p = K.fk_plain(model, fk_in)
+    rs = lambda seed: np.random.RandomState(seed).randn(80, 80)
+    hf = make_heightfield((0.03 * rs(3)).astype(np.float32), 0.25,
+                          [-10.0, -10.0], device=dev)
+    ceil = make_heightfield((0.36 + 0.02 * rs(5)).astype(np.float32), 0.25,
+                            [-10.0, -10.0], device=dev)
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    ceil_h = _hf_height(ceil, fk_p[0], fk_p[1]).contiguous()
+    assert int((fk_p[2] + model.sph_radius[:, None] > ceil_h).sum()) > 0
+    env = torch.cat([torch.linspace(0.3, 2.0, B, device=dev)[None],
+                     torch.zeros(8, B, device=dev)], 0).contiguous()
+    args = (model, EngineParams(), pack_state_rows(st, tau), fk_b, fk_p,
+            hc.contiguous(), duv.contiguous(), env, 4.0)
+    n0 = K.DYNAMICS.launches
+    got = K.dynamics(*args, ceil_h=ceil_h)
+    assert K.DYNAMICS.launches == n0 + 1
+    ref = K.dynamics_plain(*args, ceil_h=ceil_h)
     lay = K.dyn_out_layout(model.nj)
     g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
     tol = {"base_lin_vel": 1e-4, "joint_qd": 1e-3, "base_ang_vel": 1e-3,

@@ -11,6 +11,10 @@ that, FK 1e-5); both sides are float32 with different summation orders.
 The last tests build the CUDA sources as plain C++ (the kernels' bodies
 compile without nvcc, see csrc/wtw_model.cuh) and hold them against the
 plain versions, so the kernels' arithmetic is checked on the CPU too.
+
+The ceiling tests put Go2 (51 spheres) under a rough overhead field low
+enough that some spheres touch it, and assert that they do, so the
+ceiling contact pass cannot pass vacuously.
 """
 import ctypes
 import os
@@ -28,10 +32,12 @@ from wtw_tpu.physics import EngineParams as JaxEngineParams
 from wtw_tpu.physics import PhysicsState as JaxPhysicsState
 from wtw_tpu.physics import flat_heightfield as jax_flat_heightfield
 from wtw_tpu.physics.batched import _Static
+from wtw_tpu.physics.batched import _hf_height as jax_hf_height
 from wtw_tpu.physics.batched import fk_core as jax_fk_core
 from wtw_tpu.physics.batched import physics_step_batched as jax_step
 from wtw_tpu.physics.batched import sphere_pos_core as jax_sphere_pos_core
 from wtw_tpu.physics.heightfield import height_at as jax_height_at
+from wtw_tpu.physics.heightfield import height_min3 as jax_height_min3
 from wtw_tpu.physics.heightfield import make_heightfield as jax_make_hf
 from wtw_tpu.utils import quat as jq
 
@@ -41,9 +47,9 @@ from wtw_tpu_torch.physics import (EngineParams, PhysicsState,
                                    flat_heightfield, make_heightfield,
                                    physics_step_batched)
 from wtw_tpu_torch.physics import kernels as K
-from wtw_tpu_torch.physics.batched import (_hf_rows, fk_core,
+from wtw_tpu_torch.physics.batched import (_hf_height, _hf_rows, fk_core,
                                            pack_state_rows, sphere_pos_core)
-from wtw_tpu_torch.physics.heightfield import height_at
+from wtw_tpu_torch.physics.heightfield import height_at, height_min3
 from wtw_tpu_torch.physics.linalg import cholesky_solve
 from wtw_tpu_torch.utils import quat as tq
 
@@ -69,9 +75,11 @@ def random_state(rng, B, z=0.35):
         joint_qd=f(0.5 * rng.randn(B, 12)))
 
 
-def test_load_robot_arrays_match_exactly():
-    jm, tm = jax_load_robot("go1"), load_robot("go1")
-    assert (tm.nb, tm.nj, tm.nv, tm.P) == (13, 12, 18, 39)
+@pytest.mark.parametrize("name,dims", [("go1", (13, 12, 18, 39)),
+                                       ("go2", (13, 12, 18, 51))])
+def test_load_robot_arrays_match_exactly(name, dims):
+    jm, tm = jax_load_robot(name), load_robot(name)
+    assert (tm.nb, tm.nj, tm.nv, tm.P) == dims
     assert tm.parent_static == jm.parent_static
     assert tm.joint_names == jm.joint_names
     assert tm.body_names == jm.body_names
@@ -241,15 +249,115 @@ def test_heightfield_matches_jax():
                                atol=1e-6)
 
 
-def test_hf_ceiling_is_not_ported():
-    model = load_robot("go1")
-    st = {k: torch.from_numpy(v) for k, v in
-          random_state(np.random.RandomState(0), 2).items()}
-    with pytest.raises(NotImplementedError):
-        physics_step_batched(model, flat_heightfield(), EngineParams(),
-                             PhysicsState(**st), torch.zeros(2, 12),
-                             torch.ones(2), torch.zeros(2),
-                             hf_ceiling=flat_heightfield())
+def test_height_min3_matches_jax():
+    """Min of the 3 nearest grid samples (the raycast semantics): exact."""
+    rng = np.random.RandomState(2)
+    hts = (0.1 * rng.randn(30, 40)).astype(np.float32)
+    jhf = jax_make_hf(jnp.asarray(hts), 0.1, [-1.5, -2.0])
+    thf = make_heightfield(hts, 0.1, [-1.5, -2.0])
+    xy = rng.uniform(-2.5, 2.5, (8, 16, 2)).astype(np.float32)
+    np.testing.assert_array_equal(
+        height_min3(thf, torch.from_numpy(xy)).numpy(),
+        np.asarray(jax_height_min3(jhf, jnp.asarray(xy))))
+
+
+GO2_Q = [0.1, 0.8, -1.5, -0.1, 0.8, -1.5, 0.1, 1.0, -1.5, -0.1, 1.0, -1.5]
+
+
+def _go2_ceiling_case(B=8):
+    """Go2 near standing over rough ground under a rough ceiling at
+    0.36 +- 0.02 m, low enough for the base's top spheres (0.077 m above
+    a base at ~0.33 m) to touch it. Open sky (the 1e6 m sentinel of
+    `terrain/parkour.py`) covers y < 0 and blends into the ceiling across
+    one cell, so some envs stand under open sky and some under the edge."""
+    rng = np.random.RandomState(4)
+    st = random_state(rng, B, z=0.30)
+    st["joint_q"] = (np.tile(GO2_Q, (B, 1))
+                     + 0.1 * rng.randn(B, 12)).astype(np.float32)
+    tau = (3.0 * rng.randn(B, 12)).astype(np.float32)
+    fric = np.linspace(0.5, 1.25, B).astype(np.float32)
+    ground = (0.03 * np.random.RandomState(3).randn(80, 80)).astype(
+        np.float32)
+    ceil = (0.36 + 0.02 * np.random.RandomState(5).randn(80, 80)).astype(
+        np.float32)
+    ceil[:, :40] = 1e6
+    return st, tau, fric, ground, ceil
+
+
+@pytest.mark.parametrize("mode", ["gather", "cached"])
+def test_physics_step_with_ceiling_matches_jax(mode):
+    """Go2 under a rough ceiling, one substep ("gather"), or a substep that
+    returns the corner-row cache and a second one that reuses it
+    ("cached"); the caches must agree too. Bars of
+    tests/test_physics_batched.py:65-76: state 2e-4, contact forces and
+    foot kinematics 200x that."""
+    B = 8
+    st, tau, fric, ground, ceil = _go2_ceiling_case(B)
+    rest = np.zeros(B, np.float32)
+    jargs = (jax_make_hf(jnp.asarray(ground), 0.25, [-10.0, -10.0]),
+             JaxEngineParams())
+    jceil = jax_make_hf(jnp.asarray(ceil), 0.25, [-10.0, -10.0])
+    thf = make_heightfield(ground, 0.25, [-10.0, -10.0])
+    tceil = make_heightfield(ceil, 0.25, [-10.0, -10.0])
+    T = torch.from_numpy
+    jm, tm = jax_load_robot("go2"), load_robot("go2")
+    js = JaxPhysicsState(**{k: jnp.asarray(v) for k, v in st.items()})
+    ts = PhysicsState(**{k: T(v) for k, v in st.items()})
+    with jax.disable_jit():
+        jout = jax_step(jm, *jargs, js, jnp.asarray(tau), jnp.asarray(fric),
+                        jnp.asarray(rest), hf_ceiling=jceil, backend="xla",
+                        return_hf_cache=mode == "cached")
+    tout = physics_step_batched(tm, thf, EngineParams(), ts, T(tau), T(fric),
+                                T(rest), hf_ceiling=tceil,
+                                return_hf_cache=mode == "cached")
+    if mode == "cached":
+        jc, tc = jout[2], tout[2]
+        assert sorted(jc) == sorted(tc) == ["c", "g"]
+        for part in ("g", "c"):
+            u0, v0, hc = tc[part]
+            np.testing.assert_array_equal(u0.numpy(), np.asarray(jc[part][0]))
+            np.testing.assert_array_equal(v0.numpy(), np.asarray(jc[part][1]))
+            for k in range(4):
+                np.testing.assert_array_equal(hc[k].numpy(),
+                                              np.asarray(jc[part][2][k]))
+        with jax.disable_jit():
+            jout = jax_step(jm, *jargs, jout[0], jnp.asarray(tau),
+                            jnp.asarray(fric), jnp.asarray(rest),
+                            hf_ceiling=jceil, backend="xla", hf_cache=jc)
+        tout = physics_step_batched(tm, thf, EngineParams(), tout[0], T(tau),
+                                    T(fric), T(rest), hf_ceiling=tceil,
+                                    hf_cache=tc)
+    (js, ji), (ts, ti) = jout[:2], tout[:2]
+    for n in STATE_FIELDS:
+        np.testing.assert_allclose(getattr(ts, n).numpy(),
+                                   np.asarray(getattr(js, n)), atol=2e-4,
+                                   err_msg=n)
+    for n in INFO_FIELDS:
+        np.testing.assert_allclose(getattr(ti, n).numpy(),
+                                   np.asarray(getattr(ji, n)),
+                                   atol=2e-4 * 200.0, err_msg=n)
+    # the ceiling was touched: a sphere's top reaches above the ceiling
+    fk_in = torch.cat([ts.base_pos, ts.base_quat, ts.joint_q], 1).T
+    _, fk_p = K.fk_plain(tm, fk_in.contiguous())
+    ch = _hf_height(tceil, fk_p[0], fk_p[1])
+    assert int((fk_p[2] + tm.sph_radius[:, None] > ch).sum()) > 0
+
+
+def test_ceiling_height_matches_jax():
+    """Bilinear ceiling height under the spheres, open-sky cells blended
+    at the edge: exact."""
+    st, _, _, _, ceil = _go2_ceiling_case()
+    tm = load_robot("go2")
+    fk_in = torch.from_numpy(np.concatenate(
+        [st["base_pos"], st["base_quat"], st["joint_q"]], 1).T.copy())
+    _, fk_p = K.fk_plain(tm, fk_in)
+    jceil = jax_make_hf(jnp.asarray(ceil), 0.25, [-10.0, -10.0])
+    got = _hf_height(make_heightfield(ceil, 0.25, [-10.0, -10.0]),
+                     fk_p[0], fk_p[1])
+    with jax.disable_jit():
+        ref = jax_hf_height(jceil, jnp.asarray(fk_p[0].numpy()),
+                            jnp.asarray(fk_p[1].numpy()))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
 def test_model_struct_rejects_oversized_robot():
@@ -281,7 +389,7 @@ def host_kernels(tmp_path_factory):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.wtw_model_bytes.restype = ci
     lib.wtw_fk_host.argtypes = [vp] * 4 + [ci]
-    lib.wtw_dynamics_host.argtypes = [vp] * 7 + [cf, vp, ci]
+    lib.wtw_dynamics_host.argtypes = [vp] * 8 + [cf, vp, ci]
     assert lib.wtw_model_bytes() == ctypes.sizeof(K.WtwModel)
     return lib
 
@@ -336,8 +444,8 @@ def test_kernel_b_source_matches_plain(host_kernels, terrain):
     ref = K.dynamics_plain(model, params, *args)
     got = torch.empty_like(ref)
     host_kernels.wtw_dynamics_host(
-        ctypes.addressof(mbuf), *(a.data_ptr() for a in args[:6]), args[6],
-        got.data_ptr(), B)
+        ctypes.addressof(mbuf), *(a.data_ptr() for a in args[:5]), None,
+        args[5].data_ptr(), args[6], got.data_ptr(), B)
     lay = K.dyn_out_layout(model.nj)
     g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
     tol = {"base_lin_vel": 1e-4, "joint_qd": 1e-3, "base_ang_vel": 1e-3,
@@ -348,3 +456,44 @@ def test_kernel_b_source_matches_plain(host_kernels, terrain):
         np.testing.assert_allclose(g[k].numpy(), r[k].numpy(),
                                    atol=tol.get(k, 1e-5), err_msg=k)
     assert float(r["total_normal_force"].max()) > 10.0
+
+
+def test_kernel_b_ceiling_source_matches_plain(host_kernels):
+    """csrc/dynamics.cu's ceiling pass built for the host vs dynamics_plain
+    with `ceil_h`, Go2 under the rough ceiling of _go2_ceiling_case at 64
+    envs: the bars of test_kernel_b_source_matches_plain."""
+    B = 64
+    st, tau, fric, ground, ceil = _go2_ceiling_case(B)
+    model, params = load_robot("go2"), EngineParams()
+    T = torch.from_numpy
+    srows = pack_state_rows(PhysicsState(**{k: T(v) for k, v in st.items()}),
+                            T(tau))
+    fk_in = srows[:7 + 12].contiguous()
+    fk_b, fk_p = K.fk_plain(model, fk_in)
+    hf = make_heightfield(ground, 0.25, [-10.0, -10.0])
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    ceil_h = _hf_height(make_heightfield(ceil, 0.25, [-10.0, -10.0]),
+                        fk_p[0], fk_p[1]).contiguous()
+    env = torch.cat([T(fric)[None], torch.zeros(8, B)], 0).contiguous()
+    ins = (srows, fk_b, fk_p, hc.contiguous(), duv.contiguous(), ceil_h, env)
+    ref = K.dynamics_plain(model, params, *ins[:5], env, 4.0, ceil_h=ceil_h)
+    got = torch.empty_like(ref)
+    raw = bytearray(bytes(K.model_struct(model, params)))
+    mbuf = (ctypes.c_char * len(raw)).from_buffer(raw)
+    host_kernels.wtw_dynamics_host(ctypes.addressof(mbuf),
+                                   *(a.data_ptr() for a in ins), 4.0,
+                                   got.data_ptr(), B)
+    lay = K.dyn_out_layout(model.nj)
+    g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
+    tol = {"base_lin_vel": 1e-4, "joint_qd": 1e-3, "base_ang_vel": 1e-3,
+           "foot_forces": 1e-1, "thigh_contact": 1e-1, "calf_contact": 1e-1,
+           "base_contact": 1e-1, "total_normal_force": 1e-1,
+           "foot_velocities": 1e-4}
+    for k in g:
+        np.testing.assert_allclose(g[k].numpy(), r[k].numpy(),
+                                   atol=tol.get(k, 1e-5), err_msg=k)
+    touching = fk_p[2] + model.sph_radius[:, None] > ceil_h
+    assert int(touching.sum()) > 0
+    # the ceiling changes the result: the same inputs without it differ
+    free = K.dynamics_plain(model, params, *ins[:5], env, 4.0)
+    assert float((free - ref).abs().max()) > 1e-3

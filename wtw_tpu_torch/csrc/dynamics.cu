@@ -8,7 +8,8 @@
 // by CRBA over composite inertias, sphere contacts against a heightfield
 // (bilinear height, analytic normal, depth along the normal, elastic force
 // capped by the depenetration speed, implicit normal and friction damping),
-// a right-looking Cholesky with inverted diagonals, semi-implicit Euler with
+// the same spheres against an optional ceiling (overhead obstacles,
+// :516-533), a right-looking Cholesky with inverted diagonals, semi-implicit Euler with
 // quaternion renormalization, and the foot/thigh/calf/base contact sums.
 //
 // Layout (struct of arrays, env index fastest):
@@ -17,6 +18,7 @@
 //   fk_b, fk_p: kernel A's outputs, read in place
 //   hc   (4, P, B): terrain corner heights h00, h10, h01, h11 per sphere
 //   duv  (2, P, B): in-cell offsets du, dv per sphere
+//   ceil_h (P, B): ceiling height over each sphere, or null (no ceiling)
 //   env  (9, B): friction, restitution, payload, com_off 3, g_ext 3
 //   out  (3+4+3+3+nj+nj+12+12+12+4+4+1+1, B): base_pos, base_quat,
 //        base_lin_vel, base_ang_vel, joint_q, joint_qd, foot_forces 4x3,
@@ -34,13 +36,57 @@
 // runtime loops over the constant buffer (no generated code), rank-updates
 // only the ancestor dofs of each touching sphere, and leaves occupancy for
 // a later version.
+//
+// The ceiling doubles the contact set without doubling the code: both
+// contact loops run two passes over the spheres, ground then ceiling (the
+// order of the JAX engine's concatenation), and only the geometry differs
+// (contact_geom). The ceiling's normal is the constant (0, 0, -1): the
+// open-sky sentinel (1e6 m) blends bilinearly with real heights at crawl
+// cell edges, and slopes taken from those heights would overflow.
 #include "wtw_model.cuh"
+
+// Contact normal n and depth of sphere p against the ground (pass 0: the
+// bilinear patch of its corner rows, depth along the analytic normal) or
+// the ceiling (pass 1); false when out of contact, where the sphere
+// contributes exactly zero.
+WTW_FN bool contact_geom(const WtwModel& m, const float* __restrict__ fkp,
+                         const float* __restrict__ hc,
+                         const float* __restrict__ duv,
+                         const float* __restrict__ ceil_h, float inv_s,
+                         int pass, int p, int B, int e, float* n,
+                         float* depth) {
+#define ROW(ptr, r) (ptr)[(size_t)(r) * B + e]
+  const int P = m.P;
+  const float z = ROW(fkp, 2 * P + p);
+  if (pass == 1) {
+    n[0] = 0.0f;
+    n[1] = 0.0f;
+    n[2] = -1.0f;
+    *depth = z + m.sph_radius[p] - ROW(ceil_h, p);
+    return *depth > 0.0f;
+  }
+  const float h00 = ROW(hc, p), h10 = ROW(hc, P + p);
+  const float h01 = ROW(hc, 2 * P + p), h11 = ROW(hc, 3 * P + p);
+  const float du = ROW(duv, p), dv = ROW(duv, P + p);
+#undef ROW
+  const float h = h00 * (1.0f - du) * (1.0f - dv) + h10 * du * (1.0f - dv)
+                + h01 * (1.0f - du) * dv + h11 * du * dv;
+  const float dhdx = ((h10 - h00) * (1.0f - dv) + (h11 - h01) * dv) * inv_s;
+  const float dhdy = ((h01 - h00) * (1.0f - du) + (h11 - h10) * du) * inv_s;
+  const float inv_n = rsqrtf(dhdx * dhdx + dhdy * dhdy + 1.0f);
+  n[0] = -dhdx * inv_n;
+  n[1] = -dhdy * inv_n;
+  n[2] = inv_n;
+  *depth = (z - h) * (-inv_n) + m.sph_radius[p];
+  return *depth > 0.0f;
+}
 
 WTW_FN void dynamics_env(const WtwModel& m, const float* __restrict__ st,
                          const float* __restrict__ fkb,
                          const float* __restrict__ fkp,
                          const float* __restrict__ hc,
                          const float* __restrict__ duv,
+                         const float* __restrict__ ceil_h,
                          const float* __restrict__ env, float inv_s,
                          float* __restrict__ out, int B, int e) {
 #define ROW(ptr, r) (ptr)[(size_t)(r) * B + e]
@@ -220,18 +266,12 @@ WTW_FN void dynamics_env(const WtwModel& m, const float* __restrict__ st,
   const float c_n_imp = m.c_contact * (1.0f - rest) + dt * m.k_contact;
   const float f_cap = c_n_imp * m.v_maxdep;
   const float eps2 = m.vel_eps * m.vel_eps;
+  const int n_pass = ceil_h ? 2 : 1;
+  for (int pass = 0; pass < n_pass; ++pass)
   for (int p = 0; p < P; ++p) {
-    const float h00 = ROW(hc, p), h10 = ROW(hc, P + p);
-    const float h01 = ROW(hc, 2 * P + p), h11 = ROW(hc, 3 * P + p);
-    const float du = ROW(duv, p), dv = ROW(duv, P + p);
-    const float h = h00 * (1.0f - du) * (1.0f - dv) + h10 * du * (1.0f - dv)
-                  + h01 * (1.0f - du) * dv + h11 * du * dv;
-    const float dhdx = ((h10 - h00) * (1.0f - dv) + (h11 - h01) * dv) * inv_s;
-    const float dhdy = ((h01 - h00) * (1.0f - du) + (h11 - h10) * du) * inv_s;
-    const float inv_n = rsqrtf(dhdx * dhdx + dhdy * dhdy + 1.0f);
-    const float n[3] = {-dhdx * inv_n, -dhdy * inv_n, inv_n};
-    const float depth = (ROW(fkp, 2 * P + p) - h) * (-inv_n) + m.sph_radius[p];
-    if (!(depth > 0.0f)) continue;  // out of contact: contributes exactly 0
+    float n[3], depth;
+    if (!contact_geom(m, fkp, hc, duv, ceil_h, inv_s, pass, p, B, e, n, &depth))
+      continue;
     const int b = m.sph_body[p];
     float r[3], vel[3];
     for (int k = 0; k < 3; ++k) r[k] = ROW(fkp, k * P + p) - p0[k];
@@ -290,18 +330,11 @@ WTW_FN void dynamics_env(const WtwModel& m, const float* __restrict__ st,
   for (int gk = 0; gk < WTW_N_GROUPS; ++gk)
     gacc[gk][0] = gacc[gk][1] = gacc[gk][2] = 0.0f;
   float total_fn = 0.0f;
+  for (int pass = 0; pass < n_pass; ++pass)
   for (int p = 0; p < P; ++p) {
-    const float h00 = ROW(hc, p), h10 = ROW(hc, P + p);
-    const float h01 = ROW(hc, 2 * P + p), h11 = ROW(hc, 3 * P + p);
-    const float du = ROW(duv, p), dv = ROW(duv, P + p);
-    const float h = h00 * (1.0f - du) * (1.0f - dv) + h10 * du * (1.0f - dv)
-                  + h01 * (1.0f - du) * dv + h11 * du * dv;
-    const float dhdx = ((h10 - h00) * (1.0f - dv) + (h11 - h01) * dv) * inv_s;
-    const float dhdy = ((h01 - h00) * (1.0f - du) + (h11 - h10) * du) * inv_s;
-    const float inv_n = rsqrtf(dhdx * dhdx + dhdy * dhdy + 1.0f);
-    const float n[3] = {-dhdx * inv_n, -dhdy * inv_n, inv_n};
-    const float depth = (ROW(fkp, 2 * P + p) - h) * (-inv_n) + m.sph_radius[p];
-    if (!(depth > 0.0f)) continue;
+    float n[3], depth;
+    if (!contact_geom(m, fkp, hc, duv, ceil_h, inv_s, pass, p, B, e, n, &depth))
+      continue;
     const int b = m.sph_body[p];
     float r[3], vel[3], cv[3] = {0.0f, 0.0f, 0.0f};
     for (int k = 0; k < 3; ++k) r[k] = ROW(fkp, k * P + p) - p0[k];
@@ -321,7 +354,7 @@ WTW_FN void dynamics_env(const WtwModel& m, const float* __restrict__ st,
     const float vn_new = dot3(cv, n);
     const float fn_lin = fn0 - c_n_imp * vn_new;
     total_fn += fmaxf(fn_lin, 0.0f);
-    const int gk = m.sph_group[p];
+    const int gk = m.sph_group[p];  // a ceiling copy keeps its group
     if (gk >= 0)
       for (int k = 0; k < 3; ++k)
         gacc[gk][k] += fn_lin * n[k] - ct * (cv[k] - vn_new * n[k]);
@@ -382,32 +415,35 @@ wtw_dynamics_kernel(const WtwModel* __restrict__ m,
                     const float* __restrict__ st, const float* __restrict__ fkb,
                     const float* __restrict__ fkp, const float* __restrict__ hc,
                     const float* __restrict__ duv,
+                    const float* __restrict__ ceil_h,
                     const float* __restrict__ env, float inv_s,
                     float* __restrict__ out, int B) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < B) dynamics_env(*m, st, fkb, fkp, hc, duv, env, inv_s, out, B, e);
+  if (e < B)
+    dynamics_env(*m, st, fkb, fkp, hc, duv, ceil_h, env, inv_s, out, B, e);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int wtw_dynamics_launch(const void* m, const float* st,
                                    const float* fkb, const float* fkp,
                                    const float* hc, const float* duv,
-                                   const float* env, float inv_s, float* out,
-                                   int B, void* stream) {
+                                   const float* ceil_h, const float* env,
+                                   float inv_s, float* out, int B,
+                                   void* stream) {
   const int blocks = (B + WTW_BLOCK - 1) / WTW_BLOCK;
   wtw_dynamics_kernel<<<blocks, WTW_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const WtwModel*)m, st, fkb, fkp, hc, duv, env, inv_s, out, B);
+      (const WtwModel*)m, st, fkb, fkp, hc, duv, ceil_h, env, inv_s, out, B);
   return (int)cudaGetLastError();
 }
 #else
 extern "C" int wtw_dynamics_host(const void* m, const float* st,
                                  const float* fkb, const float* fkp,
                                  const float* hc, const float* duv,
-                                 const float* env, float inv_s, float* out,
-                                 int B) {
+                                 const float* ceil_h, const float* env,
+                                 float inv_s, float* out, int B) {
   for (int e = 0; e < B; ++e)
-    dynamics_env(*(const WtwModel*)m, st, fkb, fkp, hc, duv, env, inv_s, out,
-                 B, e);
+    dynamics_env(*(const WtwModel*)m, st, fkb, fkp, hc, duv, ceil_h, env, inv_s,
+                 out, B, e);
   return 0;
 }
 #endif

@@ -31,7 +31,7 @@ import torch
 from ..models.robot import RobotModel
 from ..utils.quat import quat_mul, quat_to_matrix
 from .engine import EngineParams
-from .heightfield import HeightField, corner_rows
+from .heightfield import HeightField, _cell_coords
 from .linalg import cholesky_solve
 from .state import ContactInfo, PhysicsState
 
@@ -107,7 +107,13 @@ def dynamics_core(model: RobotModel, params: EngineParams,
     Inputs (env-major): base_pos (B,3) base_quat (B,4) joint_q (B,nj)
     u (B,nv) [ang, lin, joint] tau (B,nj) body_pos (B,nb,3) body_quat
     (B,nb,4) anchors/axes (B,nj,3) xp (B,P,3) hc (4,B,P) du/dv (B,P)
-    fric rest payload (B,) com_off g_ext (B,3) inv_hscale (float)."""
+    ceil_h (B,P) or absent fric rest payload (B,) com_off g_ext (B,3)
+    inv_hscale (float).
+
+    With `ceil_h`, every sphere also meets the overhead obstacle above it
+    (`batched.py:516-533`): normal (0, 0, -1), depth z + r - ceil_h. The
+    contact set is the ground set followed by the ceiling set, and a
+    sphere's ceiling copy keeps its contact group."""
     dev = I["base_pos"].device
     nb, nj, nv = model.nb, model.nj, model.nv
     dt = float(params.dt)
@@ -187,6 +193,14 @@ def dynamics_core(model: RobotModel, params: EngineParams,
     sb = model.sph_body.long()
     r_p = xp - base_pos[:, None]
     vel = Vv[:, sb] + _cross(Vw[:, sb], r_p)
+    groups = contact_groups(model).to(dev)
+    if I.get("ceil_h") is not None:
+        depth = torch.cat([depth, xp[..., 2] + model.sph_radius
+                           - I["ceil_h"]], dim=1)
+        down = torch.tensor([0.0, 0.0, -1.0], device=dev).expand_as(n)
+        n = torch.cat([n, down], dim=1)
+        r_p, vel = torch.cat([r_p, r_p], dim=1), torch.cat([vel, vel], dim=1)
+        sb, groups = torch.cat([sb, sb]), torch.cat([groups, groups], dim=1)
     active = (depth > 0.0).float()
     f_cap = c_n_imp * float(params.max_depenetration_velocity)
     f_n0 = torch.minimum(torch.clamp(k_c * depth, min=0.0),
@@ -221,8 +235,7 @@ def dynamics_core(model: RobotModel, params: EngineParams,
     fn_lin = f_n0 - cn_eff * vn_new
     c_force = fn_lin[..., None] * n - c_t[..., None] * vt_new
     total_fn = torch.clamp(fn_lin, min=0.0).sum(-1)
-    g_acc = torch.einsum("gp,bpk->bgk", contact_groups(model).to(dev),
-                         c_force)
+    g_acc = torch.einsum("gp,bpk->bgk", groups, c_force)
     norm3 = lambda v: torch.sqrt((v * v).sum(-1) + 1e-30)
 
     # ---- semi-implicit Euler ----
@@ -275,17 +288,63 @@ def contact_groups(model: RobotModel) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _hf_rows(hf: HeightField, x: torch.Tensor, y: torch.Tensor):
+def _gather_at(hf: HeightField, u: torch.Tensor, v: torch.Tensor):
+    """Corner rows of the cells holding continuous coordinates (u, v)."""
+    u0f, v0f = torch.floor(u), torch.floor(v)
+    base = u0f.long() * hf.shape[1] + v0f.long()
+    return u0f, v0f, hf.corners[base].permute(2, 0, 1).contiguous()
+
+
+def _hf_gather(hf: HeightField, x: torch.Tensor, y: torch.Tensor):
+    """Sphere xy (P, B) -> (u0f, v0f, hc (4, P, B)): one packed corner-row
+    gather per sphere, with the float cell coordinates it was taken at (the
+    cache's anchor; `batched.py:731`)."""
+    return _gather_at(hf, *_cell_coords(hf, x, y))
+
+
+def _hf_rows(hf: HeightField, x: torch.Tensor, y: torch.Tensor, cached=None):
     """Corner rows + in-cell offsets at sphere xy (P, B) for kernel B:
-    -> hc (4, P, B), duv (2, P, B). A flat field fills the rows from
-    `flat_value` (no gather); otherwise one packed row gather per sphere
-    (`batched.py:742`)."""
+    -> hc (4, P, B), duv (2, P, B) (`batched.py:742`). Three regimes:
+    a flat field fills the rows from `flat_value` (no gather); `cached`
+    (u0f, v0f, hc) from `hf_gather_cache` reuses the rows gathered at the
+    policy-step start, with du/dv against the cached cell clamped to
+    [0, 1]; otherwise one packed row gather per sphere."""
     if hf.is_flat:
         hc = torch.full((4,) + tuple(x.shape), hf.flat_value,
                         device=x.device)
         return hc, torch.zeros((2,) + tuple(x.shape), device=x.device)
-    hcs, du, dv = corner_rows(hf, x, y)
-    return torch.stack(hcs), torch.stack([du, dv])
+    u, v = _cell_coords(hf, x, y)
+    if cached is not None:
+        u0f, v0f, hc = cached
+        return hc, torch.stack([torch.clamp(u - u0f, 0.0, 1.0),
+                                torch.clamp(v - v0f, 0.0, 1.0)])
+    u0f, v0f, hc = _gather_at(hf, u, v)
+    return hc, torch.stack([u - u0f, v - v0f])
+
+
+def _hf_height(hf: HeightField, x: torch.Tensor, y: torch.Tensor,
+               cached=None) -> torch.Tensor:
+    """Bilinear heights only (the ceiling query): (P, B) -> (P, B)
+    (`batched.py:770`)."""
+    (h00, h10, h01, h11), (du, dv) = _hf_rows(hf, x, y, cached=cached)
+    if hf.is_flat:
+        return h00
+    return (h00 * (1 - du) * (1 - dv) + h10 * du * (1 - dv)
+            + h01 * (1 - du) * dv + h11 * du * dv)
+
+
+def hf_gather_cache(hf: HeightField, xp: torch.Tensor,
+                    hf_ceiling: Optional[HeightField] = None) -> Dict:
+    """Gather the terrain (and ceiling) corner rows once at the sphere
+    positions xp (3, P, B), for reuse across the substeps of one policy
+    step through `physics_step_batched(hf_cache=...)` (`batched.py:780`).
+    Flat fields need no cache."""
+    cache = {}
+    if not hf.is_flat:
+        cache["g"] = _hf_gather(hf, xp[0], xp[1])
+    if hf_ceiling is not None and not hf_ceiling.is_flat:
+        cache["c"] = _hf_gather(hf_ceiling, xp[0], xp[1])
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -306,17 +365,23 @@ def physics_step_batched(model: RobotModel, hf: HeightField,
                          joint_torque, friction, restitution,
                          payload_mass=None, com_offset=None,
                          external_accel=None,
-                         hf_ceiling: Optional[HeightField] = None):
+                         hf_ceiling: Optional[HeightField] = None,
+                         hf_cache: Optional[Dict] = None,
+                         return_hf_cache: bool = False):
     """One substep for B envs (`batched.py:1048`): state fields carry a
-    leading (B,) env axis; returns (PhysicsState, ContactInfo).
+    leading (B,) env axis; returns (PhysicsState, ContactInfo), and with
+    `return_hf_cache` also the corner-row cache gathered at this call's
+    sphere positions.
+
+    hf_ceiling: overhead obstacles as a second heightfield (its bilinear
+    height under each sphere goes to kernel B's ceiling pass). hf_cache:
+    rows from `hf_gather_cache` (or an earlier `return_hf_cache`) reused
+    instead of a gather per substep.
 
     CUDA tensors run kernel A (FK + sphere positions) and kernel B (the
     dynamics); CPU tensors run their plain versions."""
     from . import kernels
 
-    if hf_ceiling is not None:
-        raise NotImplementedError(
-            "the ceiling contact path of kernel B is not ported yet")
     B = state.joint_q.shape[0]
     nj = model.nj
     dev = state.joint_q.device
@@ -327,14 +392,19 @@ def physics_step_batched(model: RobotModel, hf: HeightField,
     fk_in = torch.cat([state.base_pos, state.base_quat, state.joint_q],
                       dim=1).T.contiguous()
     fk_b, fk_p = kernels.fk(model, fk_in)
-    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    cache = hf_cache or {}
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1], cached=cache.get("g"))
+    ceil_h = None
+    if hf_ceiling is not None:
+        ceil_h = _hf_height(hf_ceiling, fk_p[0], fk_p[1],
+                            cached=cache.get("c"))
     env_rows = torch.cat([
         f32(friction).expand(B)[None], f32(restitution).expand(B)[None],
         bcast(payload_mass, (B,))[None], bcast(com_offset, (B, 3)).T,
         bcast(external_accel, (B, 3)).T], dim=0).contiguous()
     out = kernels.dynamics(model, params, pack_state_rows(state, joint_torque),
                            fk_b, fk_p, hc, duv, env_rows,
-                           1.0 / hf.horizontal_scale)
+                           1.0 / hf.horizontal_scale, ceil_h=ceil_h)
 
     cols = kernels.unpack_rows(out, kernels.dyn_out_layout(nj))
     new_state = PhysicsState(
@@ -348,4 +418,6 @@ def physics_step_batched(model: RobotModel, hf: HeightField,
         thigh_contact=cols["thigh_contact"], calf_contact=cols["calf_contact"],
         base_contact=cols["base_contact"][:, 0],
         total_normal_force=cols["total_normal_force"][:, 0])
+    if return_hf_cache:
+        return new_state, info, hf_gather_cache(hf, fk_p, hf_ceiling)
     return new_state, info

@@ -80,6 +80,14 @@ def corner_rows(hf: HeightField, x: torch.Tensor, y: torch.Tensor):
     return list(hc.unbind(-1)), u - u0, v - v0
 
 
+def height_min3(hf: HeightField, xy: torch.Tensor) -> torch.Tensor:
+    """Min over the 3 nearest grid samples, the raycast semantics of the
+    height scan and of foot clearance (`wtw_tpu/physics/heightfield.py:130`):
+    min(h[i, j], h[i+1, j], h[i, j+1]); xy: (..., 2) -> (...)."""
+    (h00, h10, h01, _), _, _ = corner_rows(hf, xy[..., 0], xy[..., 1])
+    return torch.minimum(torch.minimum(h00, h10), h01)
+
+
 def height_at(hf: HeightField, xy: torch.Tensor) -> torch.Tensor:
     """Bilinear terrain height at world xy; xy: (..., 2) -> (...)."""
     (h00, h10, h01, h11), du, dv = corner_rows(hf, xy[..., 0], xy[..., 1])

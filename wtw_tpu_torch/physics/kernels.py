@@ -25,6 +25,7 @@ Row layouts (all float32, shape (rows, B)):
   state    3 + 4 + nj + nv + nj: base_pos, base_quat, joint_q,
            u = (ang vel 3, lin vel 3, joint qd), tau
   hc       (4, P, B) corner heights; duv (2, P, B) in-cell offsets
+  ceil_h   (P, B) ceiling height over each sphere, or None (no ceiling)
   env      9: friction, restitution, payload, com_off 3, g_ext 3
   out      `dyn_out_layout(nj)`
 
@@ -266,7 +267,7 @@ def build(verbose: bool = True) -> Library:
     lib.wtw_model_bytes.restype = ci
     lib.wtw_fk_launch.argtypes = [vp, vp, vp, vp, ci, vp]
     lib.wtw_fk_launch.restype = ci
-    lib.wtw_dynamics_launch.argtypes = [vp] * 7 + [cf, vp, ci, vp]
+    lib.wtw_dynamics_launch.argtypes = [vp] * 8 + [cf, vp, ci, vp]
     lib.wtw_dynamics_launch.restype = ci
     if lib.wtw_model_bytes() != ctypes.sizeof(WtwModel):
         raise RuntimeError("WtwModel layout differs between csrc and "
@@ -344,7 +345,8 @@ def fk(model: RobotModel, fk_in: torch.Tensor):
 def dynamics_plain(model: RobotModel, params: EngineParams,
                    state: torch.Tensor, fk_b: torch.Tensor,
                    fk_p: torch.Tensor, hc: torch.Tensor, duv: torch.Tensor,
-                   env: torch.Tensor, inv_hscale: float) -> torch.Tensor:
+                   env: torch.Tensor, inv_hscale: float,
+                   ceil_h: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain PyTorch version of kernel B, same rows in and out."""
     nb, nj, nv = model.nb, model.nj, model.nv
     B = state.shape[1]
@@ -360,7 +362,8 @@ def dynamics_plain(model: RobotModel, params: EngineParams,
         xp=fk_p.permute(2, 1, 0), hc=hc.transpose(1, 2),
         du=duv[0].T, dv=duv[1].T, fric=ev[:, 0], rest=ev[:, 1],
         payload=ev[:, 2], com_off=ev[:, 3:6], g_ext=ev[:, 6:9],
-        inv_hscale=inv_hscale)
+        inv_hscale=inv_hscale,
+        ceil_h=None if ceil_h is None else ceil_h.T)
     out = dynamics_core(model, params, I)
     return torch.cat([out[name].reshape(B, n)
                       for name, n in dyn_out_layout(nj)], dim=1).T.contiguous()
@@ -368,9 +371,10 @@ def dynamics_plain(model: RobotModel, params: EngineParams,
 
 def dynamics(model: RobotModel, params: EngineParams, state: torch.Tensor,
              fk_b: torch.Tensor, fk_p: torch.Tensor, hc: torch.Tensor,
-             duv: torch.Tensor, env: torch.Tensor,
-             inv_hscale: float) -> torch.Tensor:
-    """Kernel B on CUDA tensors, its plain version on CPU tensors."""
+             duv: torch.Tensor, env: torch.Tensor, inv_hscale: float,
+             ceil_h: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel B on CUDA tensors, its plain version on CPU tensors. With
+    `ceil_h` (P, B) the kernel also runs its ceiling contact pass."""
     nb, nj, nv, P = model.nb, model.nj, model.nv, model.P
     B = state.shape[-1]
     _check(state, (7 + nj + nv + nj, B), "state")
@@ -379,12 +383,16 @@ def dynamics(model: RobotModel, params: EngineParams, state: torch.Tensor,
     _check(hc, (4, P, B), "hc")
     _check(duv, (2, P, B), "duv")
     _check(env, (9, B), "env")
-    devs = {t.device for t in (state, fk_b, fk_p, hc, duv, env)}
+    ins = [state, fk_b, fk_p, hc, duv, env]
+    if ceil_h is not None:
+        _check(ceil_h, (P, B), "ceil_h")
+        ins.append(ceil_h)
+    devs = {t.device for t in ins}
     if len(devs) != 1:
         raise ValueError(f"kernel B inputs on several devices: {devs}")
     if not _on_card(state):
         return dynamics_plain(model, params, state, fk_b, fk_p, hc, duv, env,
-                              inv_hscale)
+                              inv_hscale, ceil_h)
     dev = state.device
     lib = build().lib
     mbuf = _model_buffer(model, params, dev)
@@ -394,7 +402,9 @@ def dynamics(model: RobotModel, params: EngineParams, state: torch.Tensor,
         return out
     rc = lib.wtw_dynamics_launch(
         mbuf.data_ptr(), state.data_ptr(), fk_b.data_ptr(), fk_p.data_ptr(),
-        hc.data_ptr(), duv.data_ptr(), env.data_ptr(), float(inv_hscale),
+        hc.data_ptr(), duv.data_ptr(),
+        None if ceil_h is None else ceil_h.data_ptr(), env.data_ptr(),
+        float(inv_hscale),
         out.data_ptr(), B, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"kernel B launch failed: cudaError {rc}")

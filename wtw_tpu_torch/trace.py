@@ -1,15 +1,18 @@
 """Where one training iteration's time goes on the GPU.
 
-    python -m wtw_tpu_torch.trace [--num-envs 4096] [--iterations 2]
+    python -m wtw_tpu_torch.trace [--task go1_flat|parkour] [--num-envs 4096]
+                                  [--iterations 2]
 
-Builds go1_flat at full width through `train.build`, runs one warm-up
-iteration, then times the rollout and the update of each further iteration
-separately (host clock, each ending in `torch.cuda.synchronize()`), and
-profiles the last one with `torch.profiler`: device time by kernel (self
-time summed over launches), by group (the two physics kernels, matrix
-products, everything else), and the device's busy share of the iteration's
-wall time (one stream, so kernel times do not overlap). Prints one JSON
-line per result. Needs a CUDA device.
+Builds the task at full width (go1_flat through `train.build`, Go2 parkour
+with CaT on the full course through `train_parkour.build`), runs one
+warm-up iteration, then times the rollout and the update of each further
+iteration separately (host clock, each ending in
+`torch.cuda.synchronize()`), and profiles the last one with
+`torch.profiler`: device time by kernel (self time summed over launches),
+by group (the two physics kernels, matrix products, everything else), the
+kernel launches of the iteration, and the device's busy share of the
+iteration's wall time (one stream, so kernel times do not overlap). Prints
+one JSON line per result. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -40,26 +43,34 @@ def _group(name: str) -> str:
 
 
 def main(argv=None):
-    from .train import build
-
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--task", default="go1_flat",
+                    choices=["go1_flat", "parkour"])
     ap.add_argument("--num-envs", type=int, default=4096)
     ap.add_argument("--iterations", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    env, runner = build("go1_flat", args.num_envs, device="cuda",
-                        seed=args.seed, run_dir=tempfile.mkdtemp(),
-                        save_interval=0)
-    ppo = runner.ppo
-    world, obs = runner.world, runner.obs_dict
+    if args.task == "parkour":
+        from .train_parkour import build as build_parkour
+        runner = build_parkour(args.num_envs, device="cuda", seed=args.seed,
+                               run_dir=tempfile.mkdtemp(), save_interval=0)
+        env, learner = runner.env, runner.learner
+        world, obs = runner.world, runner.obs_n
+    else:
+        from .train import build
+        env, runner = build("go1_flat", args.num_envs, device="cuda",
+                            seed=args.seed, run_dir=tempfile.mkdtemp(),
+                            save_interval=0)
+        learner = runner.ppo
+        world, obs = runner.world, runner.obs_dict
 
     def iteration():
         nonlocal world, obs
         t0 = time.perf_counter()
-        world, obs, traj, _ = ppo.rollout(world, obs)
+        world, obs, traj, _ = learner.rollout(world, obs)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        ppo.update(traj, obs)
+        learner.update(traj, obs)
         torch.cuda.synchronize()
         return t1 - t0, time.perf_counter() - t1
 
@@ -86,11 +97,14 @@ def main(argv=None):
         g[1] += count
     busy_s = sum(us for us, _, _ in by_name) / 1e6
     name = torch.cuda.get_device_name(0)
-    print(json.dumps({"device": name, "num_envs": env.num_envs,
+    print(json.dumps({"device": name, "task": args.task,
+                      "num_envs": env.num_envs,
                       "rollout_s": [r for r, _ in split],
                       "update_s": [u for _, u in split]}))
     print(json.dumps({"profiled_wall_s": wall, "device_busy_s": busy_s,
                       "device_busy_share": busy_s / wall,
+                      "launches_per_iteration": sum(
+                          c for _, c, _ in by_name),
                       "groups": {k: {"device_ms": v[0] / 1e3, "launches": v[1]}
                                  for k, v in groups.items()}}))
     print(json.dumps({"top_kernels": [
