@@ -5,29 +5,50 @@
 Phases, each printing one JSON line with its seconds:
 
 1. device: the card's name, and its power limit from nvidia-smi;
-2. build: both kernels with one nvcc call, with the ptxas lines;
+2. build: both kernels with one nvcc call, with the ptxas lines (registers,
+   stack, shared memory) and each kernel's launch shape (lanes per env,
+   envs per block, shared bytes per block, resident blocks per SM);
 3. kernel A (FK + sphere positions) against its plain PyTorch version at
    4096 envs on random states from a seed;
 4. kernel B (the dynamics substep) against its plain version at 4096 envs,
    on flat and on rough ground;
-5. 100 substeps from standing through both kernels: finite, base height in
+5. ragged: both kernels at 4000 envs (not a multiple of a block's envs)
+   against their plain versions, on rough ground;
+6. 100 substeps from standing through both kernels: finite, base height in
    (0.15, 0.45);
-6. training: go1_flat at full width (4096 envs, actor/critic 512-256-128,
+7. training: go1_flat at full width (4096 envs, actor/critic 512-256-128,
    adaptation 256-128, 24 steps x 4 substeps per iteration) for 1 warm-up
    and 3 measured iterations; each kernel's launch count over the measured
    iterations must be iterations x 24 x 4;
-7. kernel_a_go2: kernel A against its plain version on Go2 (51 spheres) at
+8. kernel_a_go2: kernel A against its plain version on Go2 (51 spheres) at
    4096 envs;
-8. kernel_b_ceiling: kernel B against its plain version on Go2 at 4096 envs
-   over rough ground under a rough ceiling that some spheres touch (the
-   phase fails if none does), timed with and without the ceiling pass;
-9. parkour_rollout: 100 substeps of Go2 under PD from standing under the
+9. kernel_b_ceiling: kernel B against its plain version on Go2 at 4096 envs
+   over rough ground, under a rough ceiling that some spheres touch (the
+   phase fails if none does) and without it;
+10. parkour_rollout: 100 substeps of Go2 under PD from standing under the
    crawl barriers of the full parkour course, through both kernels with
    both heightfields: finite, base height over the ground in (0.05, 0.45);
-10. parkour_training: Go2 parkour with CaT at full width
+11. parkour_training: Go2 parkour with CaT at full width
    (`wtw_tpu_torch.train_parkour`: 4096 envs, the full 10 x 20 course,
    actor/critic 189-512-256-128) for 1 warm-up and 3 measured iterations;
    each kernel's launch count must grow by exactly iterations x 24 x 4.
+
+With `--kernels` it runs phases 1-5 and 8-9 only and prints no result
+line. This is how two versions of the kernels are compared in one call:
+copy this file into the other checkout and run it there with
+`--kernels`, then here, on the same cases (an older checkout reports no
+launch shape).
+
+Every kernel case also launches the kernel twice on the same inputs and
+fails unless the outputs are bit-identical, and reports three times: the
+device time per launch (`device_ms`: 20 launches captured in a CUDA graph
+and replayed between CUDA events), the time per wrapper call (`call_ms`:
+CUDA events around 20 back-to-back calls, the wrapper's host work
+included) and the plain version's (`plain_ms`). In the kernels line `ms`
+and the per-case times (`kernel_ms`, `ceiling_ms`, `go1_ms`, `flat_ms`,
+`rough_ms`, `go2_no_ceiling_ms`, `ragged_4000_ms`) are device times per
+launch; before the kernels gave each env a team of lanes they were the
+events-over-calls times that are now `call_ms`.
 
 Then the kernels line, the nvidia-smi line, and the result line. Exits
 non-zero, with no result line, when there is no CUDA device, when the port
@@ -35,6 +56,7 @@ cannot be imported, or when any phase fails.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import os
@@ -70,7 +92,8 @@ def emit(obj):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean ms per call from CUDA events around `iters` back-to-back calls."""
+    """Mean ms per call from CUDA events around `iters` back-to-back calls
+    (the wrapper's host work included: `call_ms`)."""
     for _ in range(warmup):
         fn()
     e0 = torch.cuda.Event(enable_timing=True)
@@ -81,6 +104,47 @@ def cuda_ms(fn, iters=20, warmup=3):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device ms per launch: `iters` calls captured in one CUDA graph,
+    replayed between CUDA events, so the wrapper's host work drops out."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    g.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / iters
+
+
+def check_deterministic(fn, what):
+    """Two launches on the same inputs must give the same bits."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(
+        a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple)
+        else (b,)))
+    if not same:
+        raise AssertionError(f"{what}: two launches on the same inputs "
+                             f"differ")
+    return True
+
+
+def timings(fn, plain, plain_iters=20):
+    """The kernel's device ms per launch (the `ms` of the kernels line), its
+    events-over-calls ms, and the plain version's ms."""
+    dev_ms = device_ms(fn)
+    return dict(ms=dev_ms, device_ms=dev_ms, call_ms=cuda_ms(fn),
+                plain_ms=cuda_ms(plain, iters=plain_iters))
 
 
 STAND_Q = {"go1": [0.0, 0.8, -1.6] * 4,
@@ -114,20 +178,25 @@ def fk_flops(model) -> int:
 def dynamics_flops(model, active_spheres_per_env: float,
                    ceiling: bool = False) -> float:
     """fp32 operations of kernel B per env, counted from csrc/dynamics.cu.
-    Fixed part: axes and velocities (24/joint), inertias (~180/body), RNEA
-    (45/joint + 117/body), composites and CRBA (~150/joint), rhs (2 nv^2),
-    ground geometry in both contact loops (~70/sphere; the ceiling pass's
-    depth is 3/sphere in each loop), Cholesky (nv^3/3 fma) and the two
-    solves (2 nv^2), integration and feet (~250). Per touching sphere,
-    ground or ceiling, with its na ancestor dofs: 12 na + 10 na^2 + 60
-    (rank update) and 15 na + 40 (realized force)."""
+    Fixed part: per body its pose, rotation and inertia (~180), bias force
+    and momentum (~117), new velocity (12) and subtree sums (52 a non-root
+    body); per joint its axis (9), velocity and acceleration (45), and
+    composite and contact axis forces (~100); per dof its rhs row (~40);
+    per nonzero lower entry of the system ~25; the factorization (3 per
+    ancestor pair of each dof, ~150 for the base block) and the forward
+    solve (2 per ancestor); ground geometry in both contact passes (~70 a
+    sphere; the ceiling's depth is 3); integration and feet (~250). Per
+    touching sphere, ground or ceiling: its terms and contact sums (~180)
+    and its realized force (~60)."""
     nb, nj, nv, P = model.nb, model.nj, model.nv, model.P
-    fixed = (24 * nj + 180 * nb + 45 * nj + 117 * nb + 150 * nj
-             + 2 * nv * nv + 70 * P + 2 * nv ** 3 / 3 + 2 * nv * nv + 250
-             + (6 * P if ceiling else 0))
-    na = 9
-    per_sphere = 12 * na + 10 * na * na + 60 + 15 * na + 40
-    return fixed + per_sphere * active_spheres_per_env
+    anc = model.static["anc"]
+    n_anc = [int((anc[b] > 0.5).sum()) for b in range(nb)]
+    nnz = 21 + sum(n_anc[1:])
+    pairs = sum(3 * (n - 1) * n // 2 for n in n_anc[1:])
+    fixed = (nb * (180 + 117 + 12) + 52 * (nb - 1) + nj * (9 + 45 + 100)
+             + 40 * nv + 25 * nnz + pairs + 150 + 2 * sum(n_anc[1:])
+             + 2 * (70 * P + (3 * P if ceiling else 0)) + 250)
+    return fixed + 240 * active_spheres_per_env
 
 
 def bound_ms(n_bytes: float, n_flops: float):
@@ -136,10 +205,10 @@ def bound_ms(n_bytes: float, n_flops: float):
                                        else "operations")
 
 
-def phase_kernel_a(model, dev):
+def phase_kernel_a(model, dev, n=B):
     from wtw_tpu_torch.physics import kernels as K
     rng = np.random.RandomState(SEED)
-    st = random_states(rng, B, dev, q0=STAND_Q[model.name.split("_")[0]])
+    st = random_states(rng, n, dev, q0=STAND_Q[model.name.split("_")[0]])
     fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q],
                       1).T.contiguous()
     fb, fp = K.fk(model, fk_in)
@@ -147,47 +216,62 @@ def phase_kernel_a(model, dev):
     torch.cuda.synchronize()
     err = max(float((fb - rb).abs().max()), float((fp - rp).abs().max()))
     if not err <= FK_TOL:
-        raise AssertionError(f"kernel A differs from its plain version: "
-                             f"{err} > {FK_TOL}")
-    ms = cuda_ms(lambda: K.fk(model, fk_in))
-    plain = cuda_ms(lambda: K.fk_plain(model, fk_in))
+        raise AssertionError(f"kernel A differs from its plain version "
+                             f"({model.name}, {n} envs): {err} > {FK_TOL}")
+    call = lambda: K.fk(model, fk_in)
+    check_deterministic(call, f"kernel A ({model.name}, {n} envs)")
     n_bytes = 4 * (fk_in.numel() + fb.numel() + fp.numel())
-    bms, by = bound_ms(n_bytes, fk_flops(model) * B)
-    return dict(max_abs_err=err, tolerance=FK_TOL, ms=ms, plain_ms=plain,
+    bms, by = bound_ms(n_bytes, fk_flops(model) * n)
+    return dict(num_envs=n, max_abs_err=err, tolerance=FK_TOL,
+                deterministic=True,
+                **timings(call, lambda: K.fk_plain(model, fk_in)),
                 bound_ms=bms, bound_by=by, bytes=n_bytes)
 
 
-def phase_kernel_b(model, dev):
+def phase_kernel_b(model, dev, n=B, terrains=("flat", "rough")):
     from wtw_tpu_torch.physics import (EngineParams, flat_heightfield,
                                        make_heightfield)
     from wtw_tpu_torch.physics import kernels as K
     from wtw_tpu_torch.physics.batched import _hf_rows
     params = EngineParams()
     srows, fk_b, fk_p, env = _dyn_case(model, dev,
-                                       np.random.RandomState(SEED + 1))
+                                       np.random.RandomState(SEED + 1), n=n)
     rough = (0.06 * np.random.RandomState(3).randn(80, 80)).astype(np.float32)
+    fields = {"flat": lambda: flat_heightfield(20.0, 0.5, device=dev),
+              "rough": lambda: make_heightfield(rough, 0.25, [-10.0, -10.0],
+                                                device=dev)}
     out = {}
-    for terrain, hf in (("flat", flat_heightfield(20.0, 0.5, device=dev)),
-                        ("rough", make_heightfield(rough, 0.25, [-10.0, -10.0],
-                                                   device=dev))):
+    for terrain in terrains:
+        hf = fields[terrain]()
         hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
         args = (model, params, srows, fk_b, fk_p, hc.contiguous(),
                 duv.contiguous(), env, 1.0 / hf.horizontal_scale)
         got = K.dynamics(*args)
         ref = K.dynamics_plain(*args)
         torch.cuda.synchronize()
-        errs = _compare_dyn(K, model, got, ref, f"on {terrain} ground")
+        what = f"on {terrain} ground ({model.name}, {n} envs)"
+        errs = _compare_dyn(K, model, got, ref, what)
+        call = lambda: K.dynamics(*args)
+        check_deterministic(call, f"kernel B {what}")
         # touching spheres in this run's data: depth along the normal > 0
         active = _ground_touching(model, hf, hc, duv, fk_p)
         n_bytes = 4 * (sum(a.numel() for a in args[2:8]) + got.numel())
-        bms, by = bound_ms(n_bytes, dynamics_flops(model, active) * B)
+        bms, by = bound_ms(n_bytes, dynamics_flops(model, active) * n)
         out[terrain] = dict(
-            max_abs_err=max(errs.values()), errors=errs,
-            ms=cuda_ms(lambda: K.dynamics(*args)),
-            plain_ms=cuda_ms(lambda: K.dynamics_plain(*args), iters=5),
+            num_envs=n, max_abs_err=max(errs.values()), errors=errs,
+            deterministic=True,
+            **timings(call, lambda: K.dynamics_plain(*args), plain_iters=5),
             bound_ms=bms, bound_by=by, bytes=n_bytes,
             touching_spheres_per_env=active)
     return out
+
+
+def phase_ragged(model, dev, n=4000):
+    """Both kernels at 4000 envs (go1_mob's default; not a multiple of a
+    block's envs) against their plain versions, on rough ground."""
+    return dict(kernel_a=phase_kernel_a(model, dev, n=n),
+                kernel_b=phase_kernel_b(model, dev, n=n,
+                                        terrains=("rough",))["rough"])
 
 
 def phase_rollout(model, dev, substeps=100):
@@ -225,17 +309,17 @@ def phase_rollout(model, dev, substeps=100):
                 launches=launched)
 
 
-def _dyn_case(model, dev, rng, z=0.30):
-    """Kernel B's inputs at B envs from random near-standing states."""
+def _dyn_case(model, dev, rng, z=0.30, n=B):
+    """Kernel B's inputs at n envs from random near-standing states."""
     from wtw_tpu_torch.physics import kernels as K
     from wtw_tpu_torch.physics.batched import pack_state_rows
-    st = random_states(rng, B, dev, z=z, q0=STAND_Q[model.name.split("_")[0]])
-    tau = torch.tensor(3.0 * rng.randn(B, 12).astype(np.float32), device=dev)
+    st = random_states(rng, n, dev, z=z, q0=STAND_Q[model.name.split("_")[0]])
+    tau = torch.tensor(3.0 * rng.randn(n, 12).astype(np.float32), device=dev)
     fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q],
                       1).T.contiguous()
     fk_b, fk_p = K.fk_plain(model, fk_in)
-    lin = lambda a, b: torch.linspace(a, b, B, device=dev)[None]
-    col = lambda v: torch.tensor(v, device=dev)[:, None].expand(3, B)
+    lin = lambda a, b: torch.linspace(a, b, n, device=dev)[None]
+    col = lambda v: torch.tensor(v, device=dev)[:, None].expand(3, n)
     env = torch.cat([lin(0.3, 2.0), lin(0.0, 0.4), lin(-0.5, 2.0),
                      col([0.01, -0.005, 0.002]), col([0.1, -0.2, 0.3])],
                     0).contiguous()
@@ -287,8 +371,14 @@ def phase_kernel_b_ceiling(model, dev):
             duv.contiguous(), env, 1.0 / hf.horizontal_scale)
     got = K.dynamics(*args, ceil_h=ceil_h)
     ref = K.dynamics_plain(*args, ceil_h=ceil_h)
+    got0, ref0 = K.dynamics(*args), K.dynamics_plain(*args)
     torch.cuda.synchronize()
     errs = _compare_dyn(K, model, got, ref, "under the ceiling")
+    errs0 = _compare_dyn(K, model, got0, ref0, "on Go2 without the ceiling")
+    call = lambda: K.dynamics(*args, ceil_h=ceil_h)
+    call0 = lambda: K.dynamics(*args)
+    check_deterministic(call, "kernel B under the ceiling")
+    check_deterministic(call0, "kernel B on Go2 without the ceiling")
     touching_c = float((fk_p[2] + model.sph_radius[:, None] > ceil_h)
                        .float().sum(0).mean())
     if not touching_c > 0:
@@ -301,13 +391,15 @@ def phase_kernel_b_ceiling(model, dev):
         model, touching_g + touching_c, ceiling=True) * B)
     n_bytes0 = n_bytes - 4 * ceil_h.numel()
     bms0, by0 = bound_ms(n_bytes0, dynamics_flops(model, touching_g) * B)
+    t0 = timings(call0, lambda: K.dynamics_plain(*args), plain_iters=5)
     return dict(
-        max_abs_err=max(errs.values()), errors=errs,
-        ms=cuda_ms(lambda: K.dynamics(*args, ceil_h=ceil_h)),
-        no_ceiling_ms=cuda_ms(lambda: K.dynamics(*args)),
-        plain_ms=cuda_ms(lambda: K.dynamics_plain(*args, ceil_h=ceil_h),
-                         iters=5),
+        max_abs_err=max(errs.values()), errors=errs, deterministic=True,
+        **timings(call, lambda: K.dynamics_plain(*args, ceil_h=ceil_h),
+                  plain_iters=5),
         bound_ms=bms, bound_by=by, bytes=n_bytes,
+        no_ceiling_max_abs_err=max(errs0.values()), no_ceiling_errors=errs0,
+        no_ceiling_ms=t0["device_ms"], no_ceiling_call_ms=t0["call_ms"],
+        no_ceiling_plain_ms=t0["plain_ms"],
         no_ceiling_bound_ms=bms0, no_ceiling_bound_by=by0,
         touching_ceiling_spheres_per_env=touching_c,
         touching_ground_spheres_per_env=touching_g)
@@ -485,7 +577,14 @@ def phase_training(device="cuda", num_envs=B, iterations=3, warmup=1,
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="only phases 1-5 and 8-9 (device, build and the "
+                         "kernel cases), with no result line: to time the "
+                         "kernels of another checkout, copy this file into "
+                         "it and run it there")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -513,14 +612,29 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lib = K.build()
+    # an older checkout's kernels (run there with --kernels) have no
+    # launch-shape query
+    shape = getattr(K, "launch_shape", lambda: None)()
     emit({"phase": "build", "library": os.path.basename(lib.path),
           "nvcc_seconds": lib.build_seconds, "ptxas": lib.ptxas,
-          "seconds": time.perf_counter() - t0})
+          "launch_shape": shape, "seconds": time.perf_counter() - t0})
 
     model = load_robot("go1", device=dev)
+    go2 = load_robot("go2", device=dev)
     results = {}
+    if args.kernels:
+        for phase, fn, m in (("kernel_a", phase_kernel_a, model),
+                             ("kernel_b", phase_kernel_b, model),
+                             ("ragged", phase_ragged, model),
+                             ("kernel_a_go2", phase_kernel_a, go2),
+                             ("kernel_b_ceiling", phase_kernel_b_ceiling, go2)):
+            t0 = time.perf_counter()
+            emit({"phase": phase, **fn(m, dev),
+                  "seconds": time.perf_counter() - t0})
+        print(smi_line, flush=True)
+        return 0
     for phase, fn in (("kernel_a", phase_kernel_a), ("kernel_b", phase_kernel_b),
-                      ("rollout", phase_rollout)):
+                      ("ragged", phase_ragged), ("rollout", phase_rollout)):
         t0 = time.perf_counter()
         results[phase] = fn(model, dev)
         emit({"phase": phase, **results[phase],
@@ -531,7 +645,6 @@ def main() -> int:
     emit({"phase": "training", **tr, "seconds": time.perf_counter() - t0})
     _check_launches("go1_flat training", tr)
 
-    go2 = load_robot("go2", device=dev)
     for phase, fn in (("kernel_a_go2", phase_kernel_a),
                       ("kernel_b_ceiling", phase_kernel_b_ceiling),
                       ("parkour_rollout", phase_parkour_rollout)):
@@ -546,38 +659,52 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     _check_launches("parkour training", pk)
 
-    ka, kb = results["kernel_a"], results["kernel_b"]
+    ka, kb, rg = results["kernel_a"], results["kernel_b"], results["ragged"]
     ka2, kc = results["kernel_a_go2"], results["kernel_b_ceiling"]
-    worst_b = max(kb.values(), key=lambda r: r["max_abs_err"])
+    worst_b = max(list(kb.values()) + [rg["kernel_b"]],
+                  key=lambda r: r["max_abs_err"])
     by_path = lambda name: {"go1_flat": tr["launches"][name],
                             "parkour": pk["launches"][name]}
     kernels = [
         dict(name=K.FK.name, route="cuda", source=K.FK.source,
              replaces=K.FK.replaces, launches=pk["launches"][K.FK.name],
              launches_by_path=by_path(K.FK.name),
-             max_abs_err=max(ka["max_abs_err"], ka2["max_abs_err"]),
+             max_abs_err=max(ka["max_abs_err"], ka2["max_abs_err"],
+                             rg["kernel_a"]["max_abs_err"]),
              tolerance=ka["tolerance"],
-             ms=ka2["ms"], kernel_ms=ka2["ms"], plain_ms=ka2["plain_ms"],
+             ms=ka2["ms"], kernel_ms=ka2["ms"], device_ms=ka2["device_ms"],
+             call_ms=ka2["call_ms"], plain_ms=ka2["plain_ms"],
              bound_ms=ka2["bound_ms"], bound_by=ka2["bound_by"],
-             go1_ms=ka["ms"], go1_plain_ms=ka["plain_ms"],
-             go1_bound_ms=ka["bound_ms"], library_ms=None),
+             go1_ms=ka["device_ms"], go1_call_ms=ka["call_ms"],
+             go1_plain_ms=ka["plain_ms"],
+             go1_bound_ms=ka["bound_ms"], ragged_4000_ms=rg["kernel_a"]["ms"],
+             launch_shape=shape[K.FK.name], library_ms=None),
         dict(name=K.DYNAMICS.name, route="cuda", source=K.DYNAMICS.source,
              replaces=K.DYNAMICS.replaces,
              launches=pk["launches"][K.DYNAMICS.name],
              launches_by_path=by_path(K.DYNAMICS.name),
-             max_abs_err=max(worst_b["max_abs_err"], kc["max_abs_err"]),
+             max_abs_err=max(worst_b["max_abs_err"], kc["max_abs_err"],
+                             kc["no_ceiling_max_abs_err"]),
              tolerance=DYN_TOL,
-             ms=kc["ms"], kernel_ms=kc["ms"], plain_ms=kc["plain_ms"],
+             ms=kc["ms"], kernel_ms=kc["ms"], device_ms=kc["device_ms"],
+             call_ms=kc["call_ms"], plain_ms=kc["plain_ms"],
              bound_ms=kc["bound_ms"], bound_by=kc["bound_by"],
              ceiling_ms=kc["ms"], ceiling_max_abs_err=kc["max_abs_err"],
              ceiling_bound_ms=kc["bound_ms"],
              touching_ceiling_spheres_per_env=kc[
                  "touching_ceiling_spheres_per_env"],
              go2_no_ceiling_ms=kc["no_ceiling_ms"],
+             go2_no_ceiling_call_ms=kc["no_ceiling_call_ms"],
+             go2_no_ceiling_plain_ms=kc["no_ceiling_plain_ms"],
              go2_no_ceiling_bound_ms=kc["no_ceiling_bound_ms"],
-             flat_ms=kb["flat"]["ms"], flat_plain_ms=kb["flat"]["plain_ms"],
+             flat_ms=kb["flat"]["ms"], flat_call_ms=kb["flat"]["call_ms"],
+             flat_plain_ms=kb["flat"]["plain_ms"],
              flat_bound_ms=kb["flat"]["bound_ms"],
-             rough_ms=kb["rough"]["ms"], library_ms=None),
+             rough_ms=kb["rough"]["ms"], rough_call_ms=kb["rough"]["call_ms"],
+             rough_plain_ms=kb["rough"]["plain_ms"],
+             rough_bound_ms=kb["rough"]["bound_ms"],
+             ragged_4000_ms=rg["kernel_b"]["ms"],
+             launch_shape=shape[K.DYNAMICS.name], library_ms=None),
     ]
     emit({"kernels": kernels})
     print(smi_line, flush=True)

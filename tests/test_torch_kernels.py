@@ -34,20 +34,20 @@ def _device():
     return torch.device("cuda")
 
 
-def _states(dev, seed=0):
+def _states(dev, seed=0, n=B):
     rng = np.random.RandomState(seed)
     t = lambda x: torch.tensor(np.asarray(x, np.float32), device=dev)
-    q = rng.randn(B, 4) * 0.1 + np.array([0.0, 0.0, 0.0, 1.0])
+    q = rng.randn(n, 4) * 0.1 + np.array([0.0, 0.0, 0.0, 1.0])
     st = PhysicsState(
-        base_pos=t(np.concatenate([rng.uniform(-1, 1, (B, 2)),
-                                   0.30 + rng.uniform(-0.05, 0.1, (B, 1))], 1)),
+        base_pos=t(np.concatenate([rng.uniform(-1, 1, (n, 2)),
+                                   0.30 + rng.uniform(-0.05, 0.1, (n, 1))], 1)),
         base_quat=t(q / np.linalg.norm(q, axis=1, keepdims=True)),
-        base_lin_vel=t(0.5 * rng.randn(B, 3)),
-        base_ang_vel=t(0.5 * rng.randn(B, 3)),
-        joint_q=t(np.tile([0.0, 0.8, -1.6] * 4, (B, 1))
-                  + 0.1 * rng.randn(B, 12)),
-        joint_qd=t(0.5 * rng.randn(B, 12)))
-    return st, t(3.0 * rng.randn(B, 12))
+        base_lin_vel=t(0.5 * rng.randn(n, 3)),
+        base_ang_vel=t(0.5 * rng.randn(n, 3)),
+        joint_q=t(np.tile([0.0, 0.8, -1.6] * 4, (n, 1))
+                  + 0.1 * rng.randn(n, 12)),
+        joint_qd=t(0.5 * rng.randn(n, 12)))
+    return st, t(3.0 * rng.randn(n, 12))
 
 
 def test_kernel_a_matches_plain():
@@ -132,6 +132,65 @@ def test_kernel_b_with_ceiling_matches_plain():
     for k in g:
         torch.testing.assert_close(g[k], r[k], rtol=0, atol=tol.get(k, 1e-5),
                                    msg=k)
+
+
+def _rough_case(dev, n, seed=1):
+    """go1 over rough ground at n envs: kernel B's inputs."""
+    model = load_robot("go1", device=dev)
+    st, tau = _states(dev, seed, n)
+    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q], 1).T.contiguous()
+    fk_b, fk_p = K.fk_plain(model, fk_in)
+    hts = (0.06 * np.random.RandomState(3).randn(80, 80)).astype(np.float32)
+    hf = make_heightfield(hts, 0.25, [-10.0, -10.0], device=dev)
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    env = torch.cat([torch.linspace(0.3, 2.0, n, device=dev)[None],
+                     torch.linspace(0.0, 0.4, n, device=dev)[None],
+                     torch.linspace(-0.5, 2.0, n, device=dev)[None],
+                     torch.zeros(6, n, device=dev)], 0).contiguous()
+    args = (model, EngineParams(), pack_state_rows(st, tau), fk_b, fk_p,
+            hc.contiguous(), duv.contiguous(), env, 4.0)
+    return model, fk_in, args
+
+
+def test_ragged_batch_matches_plain():
+    """4000 envs (go1_mob's default), not a multiple of a block's 8 envs:
+    the last block's teams past B run every phase with their loads and
+    stores masked; both kernels at the bars above."""
+    dev = _device()
+    model, fk_in, args = _rough_case(dev, 4000)
+    got_b, got_p = K.fk(model, fk_in)
+    ref_b, ref_p = K.fk_plain(model, fk_in)
+    torch.testing.assert_close(got_b, ref_b, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got_p, ref_p, rtol=0, atol=1e-5)
+    got, ref = K.dynamics(*args), K.dynamics_plain(*args)
+    lay = K.dyn_out_layout(model.nj)
+    g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
+    tol = {"base_lin_vel": 1e-4, "joint_qd": 1e-3, "base_ang_vel": 1e-3,
+           "foot_forces": 1e-1, "thigh_contact": 1e-1, "calf_contact": 1e-1,
+           "base_contact": 1e-1, "total_normal_force": 1e-1,
+           "foot_velocities": 1e-4}
+    for k in g:
+        torch.testing.assert_close(g[k], r[k], rtol=0, atol=tol.get(k, 1e-5),
+                                   msg=k)
+
+
+def test_kernels_are_deterministic():
+    """No floating-point atomics: two launches on the same inputs give the
+    same bits, for both kernels."""
+    dev = _device()
+    model, fk_in, args = _rough_case(dev, B)
+    a, b = K.fk(model, fk_in), K.fk(model, fk_in)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(K.dynamics(*args), K.dynamics(*args))
+
+
+def test_launch_shape_fits_the_card():
+    """Each kernel's block fits the SM's shared memory and at least one
+    block is resident per SM."""
+    _device()
+    for name, sh in K.launch_shape().items():
+        assert sh["shared_bytes_per_block"] <= 227 * 1024, name
+        assert sh["blocks_per_sm"] >= 1, name
 
 
 def test_physics_step_runs_the_kernels_and_stays_standing():

@@ -11,6 +11,8 @@ switched off (observation noise, pushes, in-episode command updates via
 `only_forwards`) or fed from numpy to both sides (action noise and
 minibatch permutations of the learner).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -255,6 +257,61 @@ def test_parkour_env_steps_match_jax(envs):
     # front of the barrier's base-height part
     assert float(tobs[CRAWL_ENV, -1]) == pytest.approx(0.34)
     assert float(tworld.env.phys.base_pos[CRAWL_ENV, 0]) < 2.0
+
+
+def test_one_gather_per_heightfield_per_policy_step(envs, monkeypatch):
+    """A parkour policy step gathers the ground's and the ceiling's corner
+    rows once each, on its first substep, and none on the other three: the
+    substep that returns the cache reads its own rows from that cache
+    rather than gathering them a second time. Its state, contacts and
+    cache are bit-identical to a gather followed by `hf_gather_cache`."""
+    from wtw_tpu_torch.envs import parkour_env
+    from wtw_tpu_torch.physics import batched, physics_step_batched
+    from wtw_tpu_torch.physics.batched import hf_gather_cache
+    _, tenv, jworld = envs
+    tworld = parkour_world_from_jax(jax.tree.map(np.asarray, jworld))
+    assert not tenv.hf.is_flat and not tenv.hf_ceiling.is_flat
+    assert tenv.cfg.hf_substep_cache
+    calls = []
+    real_gather, real_step = batched._gather_at, parkour_env.physics_step_batched
+
+    def gather(hf, u, v):
+        calls.append(hf)
+        return real_gather(hf, u, v)
+
+    def step(*a, **kw):
+        calls.append("substep")
+        return real_step(*a, **kw)
+
+    monkeypatch.setattr(batched, "_gather_at", gather)
+    monkeypatch.setattr(parkour_env, "physics_step_batched", step)
+    a = torch.from_numpy(
+        (0.3 * np.random.RandomState(0).randn(N, 12)).astype(np.float32))
+    tenv.step(tworld, a)
+    assert tenv.cfg.decimation == 4
+    assert calls[:3] == ["substep", tenv.hf, tenv.hf_ceiling]
+    assert calls[3:] == ["substep"] * 3
+    monkeypatch.undo()
+
+    env = tworld.env
+    args = (tenv.model, tenv.hf, tenv.engine_params, env.phys,
+            tenv._compute_tau(env, a), env.friction, 0.0)
+    new_state, new_info, cache = physics_step_batched(
+        *args, hf_ceiling=tenv.hf_ceiling, return_hf_cache=True)
+    old_state, old_info = physics_step_batched(
+        *args, hf_ceiling=tenv.hf_ceiling)
+    ph = env.phys
+    _, fk_p = K.fk_plain(tenv.model, torch.cat(
+        [ph.base_pos, ph.base_quat, ph.joint_q], 1).T.contiguous())
+    old_cache = hf_gather_cache(tenv.hf, fk_p, tenv.hf_ceiling)
+    for got, ref in ((new_state, old_state), (new_info, old_info)):
+        for f in dataclasses.fields(ref):
+            assert torch.equal(getattr(got, f.name), getattr(ref, f.name)), \
+                f.name
+    assert cache.keys() == old_cache.keys() == {"g", "c"}
+    for k in cache:
+        for got, ref in zip(cache[k], old_cache[k]):
+            assert torch.equal(got, ref), k
 
 
 def test_observation_blocks_match_jax(envs):

@@ -17,6 +17,7 @@ enough that some spheres touch it, and assert that they do, so the
 ceiling contact pass cannot pass vacuously.
 """
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
@@ -284,13 +285,25 @@ def _go2_ceiling_case(B=8):
     return st, tau, fric, ground, ceil
 
 
-@pytest.mark.parametrize("mode", ["gather", "cached"])
+def _assert_caches_equal(jc, tc):
+    assert sorted(jc) == sorted(tc) == ["c", "g"]
+    for part in ("g", "c"):
+        u0, v0, hc = tc[part]
+        np.testing.assert_array_equal(u0.numpy(), np.asarray(jc[part][0]))
+        np.testing.assert_array_equal(v0.numpy(), np.asarray(jc[part][1]))
+        for k in range(4):
+            np.testing.assert_array_equal(hc[k].numpy(),
+                                          np.asarray(jc[part][2][k]))
+
+
+@pytest.mark.parametrize("mode", ["gather", "cached", "chained"])
 def test_physics_step_with_ceiling_matches_jax(mode):
     """Go2 under a rough ceiling, one substep ("gather"), or a substep that
     returns the corner-row cache and a second one that reuses it
-    ("cached"); the caches must agree too. Bars of
-    tests/test_physics_batched.py:65-76: state 2e-4, contact forces and
-    foot kinematics 200x that."""
+    ("cached"), or that reuses it and returns a new one ("chained": its
+    rows come from the cache it was given); the caches must agree too.
+    Bars of tests/test_physics_batched.py:65-76: state 2e-4, contact forces
+    and foot kinematics 200x that."""
     B = 8
     st, tau, fric, ground, ceil = _go2_ceiling_case(B)
     rest = np.zeros(B, np.float32)
@@ -306,27 +319,31 @@ def test_physics_step_with_ceiling_matches_jax(mode):
     with jax.disable_jit():
         jout = jax_step(jm, *jargs, js, jnp.asarray(tau), jnp.asarray(fric),
                         jnp.asarray(rest), hf_ceiling=jceil, backend="xla",
-                        return_hf_cache=mode == "cached")
+                        return_hf_cache=mode != "gather")
     tout = physics_step_batched(tm, thf, EngineParams(), ts, T(tau), T(fric),
                                 T(rest), hf_ceiling=tceil,
-                                return_hf_cache=mode == "cached")
-    if mode == "cached":
+                                return_hf_cache=mode != "gather")
+    if mode != "gather":
         jc, tc = jout[2], tout[2]
-        assert sorted(jc) == sorted(tc) == ["c", "g"]
-        for part in ("g", "c"):
-            u0, v0, hc = tc[part]
-            np.testing.assert_array_equal(u0.numpy(), np.asarray(jc[part][0]))
-            np.testing.assert_array_equal(v0.numpy(), np.asarray(jc[part][1]))
-            for k in range(4):
-                np.testing.assert_array_equal(hc[k].numpy(),
-                                              np.asarray(jc[part][2][k]))
+        _assert_caches_equal(jc, tc)
+        js, ts = jout[0], tout[0]
+        if mode == "chained":
+            # moved 0.6 m (2.4 cells) from where the cache was gathered,
+            # so that rows from the cache and a fresh gather differ
+            shift = np.array([0.6, 0.0, 0.0], np.float32)
+            js = js.replace(base_pos=js.base_pos + shift)
+            ts = dataclasses.replace(ts, base_pos=ts.base_pos + T(shift))
         with jax.disable_jit():
-            jout = jax_step(jm, *jargs, jout[0], jnp.asarray(tau),
+            jout = jax_step(jm, *jargs, js, jnp.asarray(tau),
                             jnp.asarray(fric), jnp.asarray(rest),
-                            hf_ceiling=jceil, backend="xla", hf_cache=jc)
-        tout = physics_step_batched(tm, thf, EngineParams(), tout[0], T(tau),
+                            hf_ceiling=jceil, backend="xla", hf_cache=jc,
+                            return_hf_cache=mode == "chained")
+        tout = physics_step_batched(tm, thf, EngineParams(), ts, T(tau),
                                     T(fric), T(rest), hf_ceiling=tceil,
-                                    hf_cache=tc)
+                                    hf_cache=tc,
+                                    return_hf_cache=mode == "chained")
+    if mode == "chained":
+        _assert_caches_equal(jout[2], tout[2])
     (js, ji), (ts, ti) = jout[:2], tout[:2]
     for n in STATE_FIELDS:
         np.testing.assert_allclose(getattr(ts, n).numpy(),
@@ -370,6 +387,35 @@ def test_model_struct_rejects_oversized_robot():
         K.model_struct(too_many, EngineParams())
 
 
+@pytest.mark.parametrize("robot", ["go1", "go2"])
+def test_model_struct_level_order_is_topological(robot):
+    """The kernels walk the tree level by level: every body's parent lies in
+    the level before its own, each level lists each of its parents'
+    children together (child_off, n_child), every body appears once, and
+    each body's ancestor mask holds exactly its ancestor-or-self dofs."""
+    model = load_robot(robot)
+    m = K.model_struct(model, EngineParams())
+    parent = [int(p) for p in model.static["parent"]]
+    levels = [list(m.lvl_body[m.lvl_off[l]:m.lvl_off[l + 1]])
+              for l in range(m.n_lvl)]
+    assert levels[0] == [0]
+    assert sorted(b for lv in levels for b in lv) == list(range(model.nb))
+    for l in range(1, m.n_lvl):
+        for b in levels[l]:
+            assert parent[b] in levels[l - 1], (b, l)
+    order = list(m.lvl_body[:model.nb])
+    for b in range(model.nb):
+        kids = order[m.child_off[b]:m.child_off[b] + m.n_child[b]]
+        assert sorted(kids) == [c for c in range(1, model.nb)
+                                if parent[c] == b], b
+    # go1 and go2: the base, then 4 hips, 4 thighs, 4 calves
+    assert [len(lv) for lv in levels] == [1, 4, 4, 4]
+    anc = model.static["anc"]
+    for b in range(model.nb):
+        assert m.anc_mask[b] == sum(1 << d for d in range(model.nv)
+                                    if anc[b, d] > 0.5)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA sources, built as plain C++, against the plain versions
 # ---------------------------------------------------------------------------
@@ -390,8 +436,40 @@ def host_kernels(tmp_path_factory):
     lib.wtw_model_bytes.restype = ci
     lib.wtw_fk_host.argtypes = [vp] * 4 + [ci]
     lib.wtw_dynamics_host.argtypes = [vp] * 8 + [cf, vp, ci]
+    lib.wtw_set_lane_order.argtypes = [ci]
+    lib.wtw_set_lane_order.restype = None
+    for fn in (lib.wtw_fk_info, lib.wtw_dynamics_info):
+        fn.argtypes = [ctypes.POINTER(ci)]
+        fn.restype = ci
     assert lib.wtw_model_bytes() == ctypes.sizeof(K.WtwModel)
     return lib
+
+
+def test_kernel_teams_fit_a_warp_and_blocks_fit_an_sm(host_kernels):
+    """Each kernel's team divides a warp (a team syncs alone), its block is
+    whole warps, and a block's shared memory fits the 227 KB an H100 block
+    may use; kernel B's fits twice in an SM's 228 KB (two blocks, 16 warps,
+    per SM), kernel A's static shared memory stays under 48 KB."""
+    info = {}
+    for name, fn in (("fk", host_kernels.wtw_fk_info),
+                     ("dynamics", host_kernels.wtw_dynamics_info)):
+        a = (ctypes.c_int * 4)()
+        assert fn(a) == 0
+        lanes, envs, smem = a[0], a[1], a[2]
+        assert 32 % lanes == 0 and (lanes * envs) % 32 == 0, name
+        info[name] = smem
+    assert info["fk"] <= 48 * 1024
+    assert 2 * (info["dynamics"] + 1024) <= 228 * 1024
+
+
+@pytest.fixture(params=["forward", "reverse"])
+def lane_order(request, host_kernels):
+    """The host build runs each phase of a team lane after lane; in reverse
+    order a phase that reads another lane's write of the same phase (a
+    missing sync) gives other results than in forward order."""
+    host_kernels.wtw_set_lane_order(int(request.param == "reverse"))
+    yield request.param
+    host_kernels.wtw_set_lane_order(0)
 
 
 def _host_inputs(B=64):
@@ -406,9 +484,12 @@ def _host_inputs(B=64):
     return model, params, st, tau, fk_in, raw, mbuf
 
 
-def test_kernel_a_source_matches_plain(host_kernels):
-    """csrc/fk.cu built for the host vs fk_plain: atol 1e-5 (the FK bar)."""
-    model, params, st, tau, fk_in, raw, mbuf = _host_inputs()
+@pytest.mark.parametrize("B", [64, 61])
+def test_kernel_a_source_matches_plain(host_kernels, lane_order, B):
+    """csrc/fk.cu built for the host vs fk_plain: atol 1e-5 (the FK bar),
+    lanes in both orders, and a ragged B (61: not a multiple of the 8
+    envs of a block)."""
+    model, params, st, tau, fk_in, raw, mbuf = _host_inputs(B)
     ref_b, ref_p = K.fk_plain(model, fk_in)
     got_b, got_p = torch.empty_like(ref_b), torch.empty_like(ref_p)
     host_kernels.wtw_fk_host(ctypes.addressof(mbuf), fk_in.data_ptr(),
@@ -418,12 +499,14 @@ def test_kernel_a_source_matches_plain(host_kernels):
     np.testing.assert_allclose(got_p.numpy(), ref_p.numpy(), atol=1e-5)
 
 
-@pytest.mark.parametrize("terrain", ["flat", "rough"])
-def test_kernel_b_source_matches_plain(host_kernels, terrain):
+@pytest.mark.parametrize("terrain,B", [("flat", 64), ("rough", 64),
+                                       ("rough", 61)])
+def test_kernel_b_source_matches_plain(host_kernels, lane_order, terrain, B):
     """csrc/dynamics.cu built for the host vs dynamics_plain at the bars of
     tests/test_physics_batched.py:157-159 (lin vel 1e-4, joint qd 1e-3,
-    foot forces 1e-1), positions at 1e-5."""
-    model, params, st, tau, fk_in, raw, mbuf = _host_inputs()
+    foot forces 1e-1), positions at 1e-5; lanes in both orders, and a
+    ragged B (61: not a multiple of the 8 envs of a block)."""
+    model, params, st, tau, fk_in, raw, mbuf = _host_inputs(B)
     B = fk_in.shape[1]
     fk_b, fk_p = K.fk_plain(model, fk_in)
     if terrain == "flat":
@@ -458,10 +541,11 @@ def test_kernel_b_source_matches_plain(host_kernels, terrain):
     assert float(r["total_normal_force"].max()) > 10.0
 
 
-def test_kernel_b_ceiling_source_matches_plain(host_kernels):
+def test_kernel_b_ceiling_source_matches_plain(host_kernels, lane_order):
     """csrc/dynamics.cu's ceiling pass built for the host vs dynamics_plain
     with `ceil_h`, Go2 under the rough ceiling of _go2_ceiling_case at 64
-    envs: the bars of test_kernel_b_source_matches_plain."""
+    envs, lanes in both orders: the bars of
+    test_kernel_b_source_matches_plain."""
     B = 64
     st, tau, fric, ground, ceil = _go2_ceiling_case(B)
     model, params = load_robot("go2"), EngineParams()

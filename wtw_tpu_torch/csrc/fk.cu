@@ -1,91 +1,183 @@
 // Kernel A: forward kinematics over the static tree plus the world xyz of
-// every collision sphere, one thread per env.
+// every collision sphere, a team of FK_LANES lanes per env.
 //
 // Replaces the Pallas kernel `_pallas_fk` (wtw_tpu/physics/batched.py:882,
 // pallas_call at :908), which runs `fk_core` + `sphere_pos_core` per
 // (8, 128) env tile.
 //
-// Layout (struct of arrays, env index fastest, so a warp's loads and
-// stores of one row are coalesced):
+// Layout (struct of arrays, env index fastest):
 //   in   (7 + nj, B): base_pos 3, base_quat 4 (xyzw), joint_q nj
 //   fk_b (nb*7 + nj*6, B): body_pos nb x 3, body_quat nb x 4,
 //        joint anchors nj x 3, world joint axes nj x 3
 //   fk_p (3, P, B): sphere world x, y, z
 //
-// Bound on the H100: bytes. Per env it reads 19 floats and writes
-// 163 + 3 * 39 = 280 (go1), ~1.2 KB, against ~2.6 k flops: far below the
-// card's ~20 flop/byte fp32 ridge. The design writes each output once,
-// coalesced; the tree walk lives in registers/local memory.
+// Bound on the H100: bytes. Per env it reads 7 + nj floats and writes
+// nb*7 + nj*6 + 3P (go1 280, Go2 316 floats), against ~3 k flops: far below
+// the card's ~20 flop/byte fp32 ridge. What stands in the way is latency:
+// run by one thread, an env's tree walk is one dependent chain, and 4096
+// envs make only 128 warps for 132 SMs. Here a block stages its
+// FK_ENVS envs' input rows in shared memory, each env's team of FK_LANES
+// lanes walks the tree level by level (lanes over a level's bodies, a sync
+// between levels: 3 steps for a 12-joint quadruped, whose levels hold 4
+// bodies), then computes the spheres with lanes over P, and the block
+// writes the output rows coalesced. A team narrower than a warp keeps the
+// lanes busy: a warp-wide team would issue every instruction of a level for
+// 32 lanes of which 4 work.
 #include "wtw_model.cuh"
 
-WTW_FN void fk_env(const WtwModel& m, const float* __restrict__ in,
-                   float* __restrict__ fk_b, float* __restrict__ fk_p,
-                   int B, int e) {
-  const int nb = m.nb, nj = m.nj, P = m.P;
-  float pos[WTW_MAX_BODIES][3], quat[WTW_MAX_BODIES][4];
-  for (int k = 0; k < 3; ++k) pos[0][k] = in[(size_t)k * B + e];
-  for (int k = 0; k < 4; ++k) quat[0][k] = in[(size_t)(3 + k) * B + e];
-  float* anchors = fk_b + (size_t)(nb * 7) * B;
-  float* axes = fk_b + (size_t)(nb * 7 + nj * 3) * B;
-  for (int j = 0; j < nj; ++j) {
-    const int child = j + 1, p = m.parent[child];
-    float r[3], qf[4], qj[4], ax[3];
-    qrot(quat[p], m.joint_pos[j], r);
-    for (int k = 0; k < 3; ++k) pos[child][k] = pos[p][k] + r[k];
-    qmul(quat[p], m.joint_quat[j], qf);
-    const float half = 0.5f * in[(size_t)(7 + j) * B + e];
-    const float s = sinf(half), c = cosf(half);
-    qj[0] = m.joint_axis[j][0] * s;
-    qj[1] = m.joint_axis[j][1] * s;
-    qj[2] = m.joint_axis[j][2] * s;
-    qj[3] = c;
-    qmul(qf, qj, quat[child]);
-    qrot(qf, m.joint_axis[j], ax);
-    for (int k = 0; k < 3; ++k) {
-      anchors[(size_t)(j * 3 + k) * B + e] = pos[child][k];
-      axes[(size_t)(j * 3 + k) * B + e] = ax[k];
-    }
-  }
-  for (int b = 0; b < nb; ++b) {
-    for (int k = 0; k < 3; ++k) fk_b[(size_t)(b * 3 + k) * B + e] = pos[b][k];
-    for (int k = 0; k < 4; ++k)
-      fk_b[(size_t)(nb * 3 + b * 4 + k) * B + e] = quat[b][k];
-  }
+#define FK_LANES 8   // lanes per env: a level of a quadruped has 4 bodies
+#define FK_ENVS 16   // envs per block: 4 teams per warp, 64-byte row segments
+
+struct FkEnvCore {
+  float in[7 + WTW_MAX_JOINTS];
+  float pos[WTW_MAX_BODIES][3];
+  float quat[WTW_MAX_BODIES][4];
   float R[WTW_MAX_BODIES][9];
-  for (int b = 0; b < nb; ++b) quat_to_R(quat[b], R[b]);
-  for (int p = 0; p < P; ++p) {
-    const int b = m.sph_body[p];
-    float o[3];
-    mat_vec3(R[b], m.sph_pos[p], o);
-    for (int k = 0; k < 3; ++k)
-      fk_p[(size_t)(k * P + p) * B + e] = pos[b][k] + o[k];
+  float fkb[WTW_MAX_FKB];              // output rows of fk_b
+  float fkp[3 * WTW_MAX_SPHERES];      // output rows of fk_p
+};
+struct FkEnv : FkEnvCore {
+  float pad[wtw_pad<FK_ENVS>(sizeof(FkEnvCore) / 4)];
+};
+constexpr int FK_STRIDE = sizeof(FkEnv) / 4;
+constexpr int FK_SMEM = FK_ENVS * sizeof(FkEnv) + sizeof(WtwModel);
+
+// body b's pose is known: its rotation matrix and its fk_b rows
+WTW_FN void fk_body_out(const WtwModel& m, FkEnv* w, int b) {
+  quat_to_R(w->quat[b], w->R[b]);
+  for (int k = 0; k < 3; ++k) w->fkb[b * 3 + k] = w->pos[b][k];
+  for (int k = 0; k < 4; ++k) w->fkb[m.nb * 3 + b * 4 + k] = w->quat[b][k];
+}
+
+// one env's tree walk and spheres; every lane of the team calls it
+WTW_FN void fk_team(const WtwModel& m, FkEnv* w, int lane) {
+  const int nb = m.nb, nj = m.nj, P = m.P;
+  team_phase<FK_LANES>(lane, [&](int l) {
+    if (l == 0) {
+      for (int k = 0; k < 3; ++k) w->pos[0][k] = w->in[k];
+      for (int k = 0; k < 4; ++k) w->quat[0][k] = w->in[3 + k];
+      fk_body_out(m, w, 0);
+    }
+  });
+  for (int lv = 1; lv < m.n_lvl; ++lv) {
+    const int o = m.lvl_off[lv], n = m.lvl_off[lv + 1] - o;
+    team_phase<FK_LANES>(lane, [&](int l) {
+      for (int x = l; x < n; x += FK_LANES) {
+        const int c = m.lvl_body[o + x], j = c - 1, p = m.parent[c];
+        float r[3], qf[4], qj[4], ax[3];
+        qrot(w->quat[p], m.joint_pos[j], r);
+        for (int k = 0; k < 3; ++k) w->pos[c][k] = w->pos[p][k] + r[k];
+        qmul(w->quat[p], m.joint_quat[j], qf);
+        const float half = 0.5f * w->in[7 + j];
+        const float s = sinf(half), cs = cosf(half);
+        qj[0] = m.joint_axis[j][0] * s;
+        qj[1] = m.joint_axis[j][1] * s;
+        qj[2] = m.joint_axis[j][2] * s;
+        qj[3] = cs;
+        qmul(qf, qj, w->quat[c]);
+        qrot(qf, m.joint_axis[j], ax);
+        for (int k = 0; k < 3; ++k) {
+          w->fkb[nb * 7 + j * 3 + k] = w->pos[c][k];
+          w->fkb[nb * 7 + nj * 3 + j * 3 + k] = ax[k];
+        }
+        fk_body_out(m, w, c);
+      }
+    });
   }
+  team_phase<FK_LANES>(lane, [&](int l) {
+    for (int p = l; p < P; p += FK_LANES) {
+      const int b = m.sph_body[p];
+      float o[3];
+      mat_vec3(w->R[b], m.sph_pos[p], o);
+      for (int k = 0; k < 3; ++k) w->fkp[k * P + p] = w->pos[b][k] + o[k];
+    }
+  });
+}
+
+// one block: stage FK_ENVS envs and the robot model, run the teams, store
+// their rows (tid/nthr: this thread among the block's; the host passes 0/1)
+WTW_FN void fk_stage(const WtwModel* __restrict__ m,
+                     const float* __restrict__ in, FkEnv* sm, WtwModel* msm,
+                     int B, int e0, int tid, int nthr) {
+  stage_rows<FK_ENVS>(in, 7 + m->nj, B, e0, (float*)sm, FK_STRIDE,
+                      offsetof(FkEnvCore, in) / 4, tid, nthr);
+  stage_model(m, msm, tid, nthr);
+}
+
+WTW_FN void fk_store(const WtwModel& m, float* __restrict__ fk_b,
+                     float* __restrict__ fk_p, const FkEnv* sm, int B, int e0,
+                     int tid, int nthr) {
+  store_rows<FK_ENVS>(fk_b, m.nb * 7 + m.nj * 6, B, e0, (const float*)sm,
+                      FK_STRIDE, offsetof(FkEnvCore, fkb) / 4, tid, nthr);
+  store_rows<FK_ENVS>(fk_p, 3 * m.P, B, e0, (const float*)sm, FK_STRIDE,
+                      offsetof(FkEnvCore, fkp) / 4, tid, nthr);
 }
 
 extern "C" int wtw_model_bytes() { return (int)sizeof(WtwModel); }
 
 #ifdef __CUDACC__
-__global__ void __launch_bounds__(WTW_BLOCK)
+__global__ void __launch_bounds__(FK_LANES * FK_ENVS)
 wtw_fk_kernel(const WtwModel* __restrict__ m, const float* __restrict__ in,
               float* __restrict__ fk_b, float* __restrict__ fk_p, int B) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < B) fk_env(*m, in, fk_b, fk_p, B, e);
+  __shared__ FkEnv sm[FK_ENVS];
+  __shared__ WtwModel msm;
+  const int e0 = blockIdx.x * FK_ENVS;
+  fk_stage(m, in, sm, &msm, B, e0, threadIdx.x, blockDim.x);
+  stage_wait();
+  __syncthreads();
+  // every team runs every phase, also past the ragged edge (its inputs
+  // are 0 there and its rows are not stored): no barrier is skipped
+  fk_team(msm, &sm[threadIdx.x / FK_LANES], threadIdx.x % FK_LANES);
+  __syncthreads();
+  fk_store(msm, fk_b, fk_p, sm, B, e0, threadIdx.x, blockDim.x);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int wtw_fk_launch(const void* m, const float* in, float* fk_b,
                              float* fk_p, int B, void* stream) {
-  const int blocks = (B + WTW_BLOCK - 1) / WTW_BLOCK;
-  wtw_fk_kernel<<<blocks, WTW_BLOCK, 0, (cudaStream_t)stream>>>(
+  const int blocks = (B + FK_ENVS - 1) / FK_ENVS;
+  wtw_fk_kernel<<<blocks, FK_LANES * FK_ENVS, 0, (cudaStream_t)stream>>>(
       (const WtwModel*)m, in, fk_b, fk_p, B);
   return (int)cudaGetLastError();
 }
+
+// lanes per env, envs per block, shared bytes per block, resident blocks
+// per SM; returns a cudaError (0 = ok)
+extern "C" int wtw_fk_info(int* info) {
+  info[0] = FK_LANES;
+  info[1] = FK_ENVS;
+  info[2] = FK_SMEM;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[3], wtw_fk_kernel, FK_LANES * FK_ENVS, 0);
+}
 #else
-// Host build of the same body (CPU tests of the kernel's arithmetic).
-extern "C" int wtw_fk_host(const void* m, const float* in, float* fk_b,
+#include <vector>
+
+// Host build of the same body (CPU tests of the kernel's arithmetic and
+// of its phases): blocks one after another, each team's lanes in turn.
+extern "C" int wtw_fk_host(const void* mp, const float* in, float* fk_b,
                            float* fk_p, int B) {
-  for (int e = 0; e < B; ++e)
-    fk_env(*(const WtwModel*)m, in, fk_b, fk_p, B, e);
+  const WtwModel* m = (const WtwModel*)mp;
+  std::vector<FkEnv> sm(FK_ENVS);
+  WtwModel msm{};
+  for (int e0 = 0; e0 < B; e0 += FK_ENVS) {
+    // NaN everywhere first: a read of what no phase wrote shows
+    for (FkEnv& w : sm)
+      for (int i = 0; i < FK_STRIDE; ++i) ((float*)&w)[i] = NAN;
+    fk_stage(m, in, sm.data(), &msm, B, e0, 0, 1);
+    for (int t = 0; t < FK_ENVS; ++t) fk_team(msm, &sm[t], 0);
+    fk_store(msm, fk_b, fk_p, sm.data(), B, e0, 0, 1);
+  }
+  return 0;
+}
+
+extern "C" void wtw_set_lane_order(int reverse) { wtw_lane_reverse = reverse; }
+
+extern "C" int wtw_fk_info(int* info) {
+  info[0] = FK_LANES;
+  info[1] = FK_ENVS;
+  info[2] = FK_SMEM;
+  info[3] = 0;
   return 0;
 }
 #endif

@@ -1,4 +1,5 @@
-// Robot constants and small vector helpers shared by kernels A and B.
+// Robot constants, the team-of-lanes scaffolding and small vector helpers
+// shared by kernels A and B.
 //
 // The robot model travels as one read-only device buffer holding a
 // WtwModel, written once per (model, engine params, device) by
@@ -7,27 +8,42 @@
 // Dimensions are runtime values under the compile-time maxima below; the
 // Python wrapper raises for a robot that exceeds them.
 //
-// The same sources also build as plain C++ (no __CUDACC__): the device
-// bodies then become inline host functions driven by a loop over envs,
-// which lets the CPU tests check the kernels' arithmetic where no nvcc
-// exists.
+// Both kernels give each env a team of lanes inside one warp and put
+// several teams in a block (each kernel's source sets both). A kernel body is a sequence of phases
+// (team_phase): inside a phase each lane works on its own share of the
+// env's data in shared memory, and a phase ends with a sync of the team.
+// State that crosses a phase lives in the shared-memory struct, never in a
+// lane's locals. A block first stages its envs' input rows into shared
+// memory (threads over (row, env), env fastest: coalesced) and at the end
+// writes the output rows the same way.
+//
+// The same sources also build as plain C++ (no __CUDACC__): team_phase
+// then runs the phase for every lane of the team in turn, in forward or in
+// reverse lane order (wtw_set_lane_order). A phase that reads what another
+// lane writes in the same phase gives different results in the two orders,
+// so the CPU tests catch a missing sync where no nvcc exists.
 #pragma once
 #include <math.h>
+#include <stddef.h>
+#include <string.h>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define WTW_FN __device__ __forceinline__
+#define WTW_UNROLL _Pragma("unroll")
 #else
+#define WTW_UNROLL
 #define WTW_FN static inline
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #endif
+
 
 #define WTW_MAX_BODIES 16
 #define WTW_MAX_JOINTS 15
 #define WTW_MAX_DOFS 21
 #define WTW_MAX_SPHERES 64
 #define WTW_N_GROUPS 13  // foot x4, thigh x4, calf x4, base
-#define WTW_BLOCK 128
+#define WTW_MAX_FKB (WTW_MAX_BODIES * 7 + WTW_MAX_JOINTS * 6)
 
 struct WtwModel {
   int nb, nj, nv, P;
@@ -51,7 +67,123 @@ struct WtwModel {
   float dt;
   float gravity[3];
   float k_contact, c_contact, vel_eps, v_maxdep, armature;
+  // the tree by levels (depth from the base): bodies of level l are
+  // lvl_body[lvl_off[l] .. lvl_off[l + 1]), and the children of body b,
+  // which sit together in the next level, are lvl_body[child_off[b] ..
+  // child_off[b] + n_child[b])
+  int n_lvl;
+  int lvl_off[WTW_MAX_BODIES + 1];
+  int lvl_body[WTW_MAX_BODIES];
+  int child_off[WTW_MAX_BODIES];
+  int n_child[WTW_MAX_BODIES];
+  int anc_mask[WTW_MAX_BODIES];   // bit i: dof i is an ancestor-or-self dof
 };
+
+#ifdef __CUDACC__
+// run phase f for this thread's lane, then sync the team: LANES lanes
+// (a power of two up to 32) that sit together in one warp
+template <int LANES, class F>
+WTW_FN void team_phase(int lane, F&& f) {
+  f(lane);
+  __syncwarp(LANES == 32 ? 0xffffffffu
+                         : ((1u << LANES) - 1u) << (threadIdx.x & 31 & ~(LANES - 1)));
+}
+#else
+// the team emulated on the host: every lane in turn, in the order set by
+// wtw_set_lane_order (0 forward, 1 reverse)
+inline int wtw_lane_reverse = 0;
+template <int LANES, class F>
+static inline void team_phase(int, F&& f) {
+  for (int k = 0; k < LANES; ++k) f(wtw_lane_reverse ? LANES - 1 - k : k);
+}
+#endif
+
+// floats of padding that make a per-env struct of n floats a stride of
+// 32 / ENVS banks mod 32 (1 for ENVS > 32), so the staging threads of one
+// warp (rows x ENVS envs) hit 32 different banks
+template <int ENVS>
+constexpr int wtw_pad(int n) {
+  return ((ENVS >= 32 ? 1 : 32 / ENVS) - n % 32 + 32) % 32 == 0
+             ? 32 : ((ENVS >= 32 ? 1 : 32 / ENVS) - n % 32 + 32) % 32;
+}
+
+// Set bits of a team's shared int: an integer OR, exact in any order, so
+// the result does not depend on the lanes' order.
+WTW_FN void team_or(int* p, int bits) {
+#ifdef __CUDACC__
+  atomicOr(p, bits);
+#else
+  *p |= bits;
+#endif
+}
+
+// Index of the lowest set bit of a nonzero mask.
+WTW_FN int lowest_bit(unsigned m) {
+#ifdef __CUDACC__
+  return __ffs((int)m) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+// One float from global to shared memory without passing through a
+// register (cp.async): a thread's copies all stay in flight until
+// stage_wait, instead of one load latency each.
+WTW_FN void copy_async4(float* dst, const float* src) {
+#ifdef __CUDACC__
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+#else
+  memcpy(dst, src, 4);  // bytes: the model's ints travel as words too
+#endif
+}
+
+// Wait for this thread's copies; a __syncthreads() must follow before
+// other threads read them.
+WTW_FN void stage_wait() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// The robot model into shared memory (words of 4 bytes), next to the
+// block's input rows, so that the phases read it without a trip to L2.
+WTW_FN void stage_model(const WtwModel* __restrict__ g, WtwModel* sm, int tid,
+                        int nthr) {
+  const float* src = (const float*)g;
+  float* dst = (float*)sm;
+  for (int x = tid; x < (int)(sizeof(WtwModel) / 4); x += nthr)
+    copy_async4(&dst[x], &src[x]);
+}
+
+// Rows [0, nrows) of a (nrows, B) array, envs e0 .. e0 + ENVS, into float
+// `off` onward of each env's struct (stride floats apart); envs past B read
+// 0. Threads tid, tid + nthr, ... go over (row, env), env fastest.
+template <int ENVS>
+WTW_FN void stage_rows(const float* __restrict__ g, int nrows, int B, int e0,
+                       float* sm, int stride, int off, int tid, int nthr) {
+  for (int x = tid; x < nrows * ENVS; x += nthr) {
+    const int r = x / ENVS, t = x % ENVS, e = e0 + t;
+    float* dst = &sm[t * stride + off + r];
+    if (e < B)
+      copy_async4(dst, &g[(size_t)r * B + e]);
+    else
+      *dst = 0.0f;
+  }
+}
+
+// The reverse: rows out of shared memory, stores masked at the ragged edge.
+template <int ENVS>
+WTW_FN void store_rows(float* __restrict__ g, int nrows, int B, int e0,
+                       const float* sm, int stride, int off, int tid,
+                       int nthr) {
+  for (int x = tid; x < nrows * ENVS; x += nthr) {
+    const int r = x / ENVS, t = x % ENVS, e = e0 + t;
+    if (e < B) g[(size_t)r * B + e] = sm[t * stride + off + r];
+  }
+}
+
 
 WTW_FN void cross3(const float* a, const float* b, float* o) {
   o[0] = a[1] * b[2] - a[2] * b[1];

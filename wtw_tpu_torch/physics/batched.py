@@ -392,7 +392,12 @@ def physics_step_batched(model: RobotModel, hf: HeightField,
     fk_in = torch.cat([state.base_pos, state.base_quat, state.joint_q],
                       dim=1).T.contiguous()
     fk_b, fk_p = kernels.fk(model, fk_in)
-    cache = hf_cache or {}
+    # the cache to return is gathered once, and this substep reads its rows
+    # from it unless a cache was passed: JAX leaves the merge of the two
+    # gathers to XLA's CSE, eager torch has none
+    new_cache = (hf_gather_cache(hf, fk_p, hf_ceiling) if return_hf_cache
+                 else None)
+    cache = hf_cache or new_cache or {}
     hc, duv = _hf_rows(hf, fk_p[0], fk_p[1], cached=cache.get("g"))
     ceil_h = None
     if hf_ceiling is not None:
@@ -419,5 +424,5 @@ def physics_step_batched(model: RobotModel, hf: HeightField,
         base_contact=cols["base_contact"][:, 0],
         total_normal_force=cols["total_normal_force"][:, 0])
     if return_hf_cache:
-        return new_state, info, hf_gather_cache(hf, fk_p, hf_ceiling)
+        return new_state, info, new_cache
     return new_state, info

@@ -8,14 +8,20 @@ Kernel B (`dynamics`) replaces `_pallas_dynamics` (batched.py:926,
 pallas_call at :1024): the whole contact-dynamics substep of
 `dynamics_core`. Source: `wtw_tpu_torch/csrc/dynamics.cu`.
 
-Both are CUDA C++ for `sm_90a`, one thread per env over struct-of-arrays
-rows (env index fastest, so every row access of a warp is coalesced), with
-the robot as one read-only constant buffer (`WtwModel`, mirrored below).
-What bounds each on the H100 and what its design does about it is written at
-the top of its source file. Kernel A is bound by bytes (~1.2 KB/env against
-~2.6 k flops). Kernel B sits near the fp32 ridge and is latency-bound in
-this first version (per-thread 21x21 system in local memory, 32 blocks of
-128 threads for 4096 envs on 132 SMs).
+Both are CUDA C++ for `sm_90a` over struct-of-arrays rows (env index
+fastest), with the robot as one read-only constant buffer (`WtwModel`,
+mirrored below, which also carries the tree's level order). Each env gets a
+team of lanes inside one warp (kernel B a warp, kernel A 8 lanes) and a
+block holds several envs: the block stages its envs' input rows and the
+robot model in shared memory with coalesced loads, each team works
+through its env in phases with lanes over bodies, a level of the tree,
+dofs, matrix entries or contact candidates, and the block writes the output
+rows coalesced. No floating-point atomics: a launch's result does not
+depend on scheduling. What bounds each on the H100 and what its design does
+about it is written at the top of its source file; both are bound by bytes
+(kernel A ~1.3 KB/env against ~3 k flops, kernel B ~3.3 KB/env against a
+few thousand to ~30 k). `launch_shape()` reports each kernel's lanes, envs
+per block, shared bytes per block and resident blocks per SM.
 
 Row layouts (all float32, shape (rows, B)):
   fk_in    7 + nj: base_pos 3, base_quat 4 (xyzw), joint_q nj
@@ -125,7 +131,24 @@ class WtwModel(ctypes.Structure):
         ("dt", _f), ("gravity", _f * 3),
         ("k_contact", _f), ("c_contact", _f), ("vel_eps", _f),
         ("v_maxdep", _f), ("armature", _f),
+        ("n_lvl", _i), ("lvl_off", _i * (MAX_BODIES + 1)),
+        ("lvl_body", _i * MAX_BODIES), ("child_off", _i * MAX_BODIES),
+        ("n_child", _i * MAX_BODIES), ("anc_mask", _i * MAX_BODIES),
     ]
+
+
+def tree_levels(parent) -> List[List[int]]:
+    """Bodies grouped by depth from the base (body 0), in breadth-first
+    order: each level lists the children of the previous level's bodies
+    parent by parent, each parent's children in ascending index, so one
+    parent's children sit together."""
+    levels = [[0]]
+    while True:
+        nxt = [c for p in levels[-1] for c in range(1, len(parent))
+               if int(parent[c]) == p]
+        if not nxt:
+            return levels
+        levels.append(nxt)
 
 
 def model_struct(model: RobotModel, params: EngineParams) -> WtwModel:
@@ -179,6 +202,35 @@ def model_struct(model: RobotModel, params: EngineParams) -> WtwModel:
     m.vel_eps = float(params.friction_vel_eps)
     m.v_maxdep = float(params.max_depenetration_velocity)
     m.armature = float(params.armature)
+    levels = tree_levels(s["parent"])
+    order = [b for lv in levels for b in lv]
+    if sorted(order) != list(range(nb)) or any(
+            int(s["parent"][b]) >= b for b in range(1, nb)):
+        raise ValueError(f"robot {model.name!r}: not a tree rooted at body 0 "
+                         f"with every parent numbered before its child")
+    # kernel B factors a level's dofs together: they may share no ancestor
+    # dof but the base's
+    for bodies in levels[1:]:
+        seen = set()
+        for b in bodies:
+            own = {d for d in range(6, nv) if anc[b, d] > 0.5} - {b + 5}
+            if own & seen:
+                raise ValueError(f"robot {model.name!r}: bodies of one tree "
+                                 f"level share a joint ancestor")
+            seen |= own
+    m.n_lvl = len(levels)
+    at = 0
+    for lv, bodies in enumerate(levels):
+        m.lvl_off[lv] = at
+        at += len(bodies)
+    m.lvl_off[len(levels)] = at
+    for k, b in enumerate(order):
+        m.lvl_body[k] = b
+        kids = [x for x, c in enumerate(order) if int(s["parent"][c]) == b
+                and c != 0]
+        m.n_child[b] = len(kids)
+        m.child_off[b] = kids[0] if kids else 0
+        m.anc_mask[b] = sum(1 << d for d in range(nv) if anc[b, d] > 0.5)
     return m
 
 
@@ -269,11 +321,31 @@ def build(verbose: bool = True) -> Library:
     lib.wtw_fk_launch.restype = ci
     lib.wtw_dynamics_launch.argtypes = [vp] * 8 + [cf, vp, ci, vp]
     lib.wtw_dynamics_launch.restype = ci
+    for fn in (lib.wtw_fk_info, lib.wtw_dynamics_info):
+        fn.argtypes = [ctypes.POINTER(ci)]
+        fn.restype = ci
     if lib.wtw_model_bytes() != ctypes.sizeof(WtwModel):
         raise RuntimeError("WtwModel layout differs between csrc and "
                            "physics/kernels.py")
     _LIBRARY = Library(lib, so, seconds, ptxas)
     return _LIBRARY
+
+
+def launch_shape() -> Dict[str, Dict[str, int]]:
+    """Per kernel: lanes per env, envs per block, shared bytes per block and
+    resident blocks per SM on the current device (builds the library)."""
+    lib = build().lib
+    shapes = {}
+    for k, fn in ((FK, lib.wtw_fk_info), (DYNAMICS, lib.wtw_dynamics_info)):
+        info = (ctypes.c_int * 4)()
+        rc = fn(info)
+        if rc != 0:
+            raise RuntimeError(f"{k.name}: occupancy query failed: "
+                               f"cudaError {rc}")
+        shapes[k.name] = dict(lanes_per_env=info[0], envs_per_block=info[1],
+                              shared_bytes_per_block=info[2],
+                              blocks_per_sm=info[3])
+    return shapes
 
 
 def _check(t: torch.Tensor, shape, name: str):
