@@ -31,9 +31,22 @@ Phases, each printing one JSON line with its seconds:
 11. parkour_training: Go2 parkour with CaT at full width
    (`wtw_tpu_torch.train_parkour`: 4096 envs, the full 10 x 20 course,
    actor/critic 189-512-256-128) for 1 warm-up and 3 measured iterations;
-   each kernel's launch count must grow by exactly iterations x 24 x 4.
+   each kernel's launch count must grow by exactly iterations x 24 x 4;
+12. kernel_b_edges: kernel B against its plain version on go1 at 4000 envs
+   over go1_mob's own map (`build_terrain` at its defaults: 30 x 30 cells,
+   a 1500 x 1500 field at 0.1 m with a 0 m border), every base within
+   0.8 m of an edge or past it, so spheres sit over the last cells and
+   beyond them, where the cell coordinates clamp;
+13. mob_training: go1_mob, the gait-conditioned MoB recipe, at full width
+   (`wtw_tpu_torch.train.build("go1_mob")`: 4000 envs, obs 70 x 30
+   history, actor/critic 512-256-128, adaptation 256-128, the actuator net,
+   the gait clock and the 1500 x 1500 heightfield on the card, kernel B on
+   its go1 rough-ground path) for 1 warm-up and 3 measured iterations;
+   each kernel's launch count over the measured iterations must be
+   iterations x 24 x 4, and the field on the card must equal a second
+   host build of the map (whose seconds it reports).
 
-With `--kernels` it runs phases 1-5 and 8-9 only and prints no result
+With `--kernels` it runs phases 1-5, 8-9 and 12 only and prints no result
 line. This is how two versions of the kernels are compared in one call:
 copy this file into the other checkout and run it there with
 `--kernels`, then here, on the same cases (an older checkout reports no
@@ -46,9 +59,11 @@ and replayed between CUDA events), the time per wrapper call (`call_ms`:
 CUDA events around 20 back-to-back calls, the wrapper's host work
 included) and the plain version's (`plain_ms`). In the kernels line `ms`
 and the per-case times (`kernel_ms`, `ceiling_ms`, `go1_ms`, `flat_ms`,
-`rough_ms`, `go2_no_ceiling_ms`, `ragged_4000_ms`) are device times per
-launch; before the kernels gave each env a team of lanes they were the
-events-over-calls times that are now `call_ms`.
+`rough_ms`, `go2_no_ceiling_ms`, `ragged_4000_ms`, `edges_ms`) are device
+times per launch; before the kernels gave each env a team of lanes they
+were the events-over-calls times that are now `call_ms`. The line's
+`launches` is each kernel's count in this slice's path (go1_mob training),
+and `launches_by_path` holds the counts of every training phase.
 
 Then the kernels line, the nvidia-smi line, and the result line. Exits
 non-zero, with no result line, when there is no CUDA device, when the port
@@ -266,6 +281,65 @@ def phase_kernel_b(model, dev, n=B, terrains=("flat", "rough")):
     return out
 
 
+def phase_kernel_b_edges(model, dev, n=4000):
+    """go1 over go1_mob's 150 m x 150 m map with every base within 0.8 m of
+    one of its four edges or past it (the map has no border, and teleport
+    is off in go1_mob, so a robot can walk off it): the corner rows come
+    from the clamped cell coordinates, as in the env."""
+    from wtw_tpu_torch.config import go1_mob_config
+    from wtw_tpu_torch.physics import EngineParams
+    from wtw_tpu_torch.physics import kernels as K
+    from wtw_tpu_torch.physics.batched import _hf_rows, pack_state_rows
+    from wtw_tpu_torch.terrain import build_terrain, to_heightfield
+    hf = to_heightfield(build_terrain(go1_mob_config().terrain, seed=SEED),
+                        dev)
+    ext = hf.shape[0] * hf.horizontal_scale
+    rng = np.random.RandomState(SEED + 4)
+    st = random_states(rng, n, dev, z=0.32)
+    edge = rng.randint(0, 4, n)
+    near = np.where(edge % 2 == 0, rng.uniform(-0.8, 0.8, n),
+                    ext + rng.uniform(-0.8, 0.8, n))
+    along = rng.uniform(0.0, ext, n)
+    xy = np.where((edge < 2)[:, None], np.stack([near, along], 1),
+                  np.stack([along, near], 1)).astype(np.float32)
+    st.base_pos[:, :2] = torch.from_numpy(xy).to(dev)
+    tau = torch.tensor(3.0 * rng.randn(n, 12).astype(np.float32), device=dev)
+    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q],
+                      1).T.contiguous()
+    fk_b, fk_p = K.fk_plain(model, fk_in)
+    srows = pack_state_rows(st, tau)
+    _, _, _, env = _dyn_case(model, dev, np.random.RandomState(SEED + 1),
+                             n=n)
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    args = (model, EngineParams(), srows, fk_b, fk_p, hc.contiguous(),
+            duv.contiguous(), env, 1.0 / hf.horizontal_scale)
+    got, ref = K.dynamics(*args), K.dynamics_plain(*args)
+    torch.cuda.synchronize()
+    # world positions 150 m from the origin carry fp32 steps of 2^-16 m
+    # (1.5e-5): positions are held to 1e-5 or 2 of those steps, whichever
+    # is larger; every other output to DYN_TOL
+    pos_tol = max(DYN_TOL["foot_positions"],
+                  2.0 * float(np.spacing(np.float32(ext))))
+    tol = dict(DYN_TOL, base_pos=pos_tol, foot_positions=pos_tol)
+    errs = _compare_dyn(K, model, got, ref, "at the edges of go1_mob's map",
+                        tol)
+    call = lambda: K.dynamics(*args)
+    check_deterministic(call, "kernel B at the edges of go1_mob's map")
+    outside = ((fk_p[0] < 0) | (fk_p[0] > ext) | (fk_p[1] < 0)
+               | (fk_p[1] > ext)).float().mean()
+    active = _ground_touching(model, hf, hc, duv, fk_p)
+    n_bytes = 4 * (sum(a.numel() for a in args[2:8]) + got.numel())
+    bms, by = bound_ms(n_bytes, dynamics_flops(model, active) * n)
+    return dict(num_envs=n, heightfield_shape=list(hf.shape),
+                max_abs_err=max(errs.values()), errors=errs,
+                position_tolerance=pos_tol,
+                deterministic=True, spheres_outside_share=float(outside),
+                **timings(call, lambda: K.dynamics_plain(*args),
+                          plain_iters=5),
+                bound_ms=bms, bound_by=by, bytes=n_bytes,
+                touching_spheres_per_env=active)
+
+
 def phase_ragged(model, dev, n=4000):
     """Both kernels at 4000 envs (go1_mob's default; not a multiple of a
     block's envs) against their plain versions, on rough ground."""
@@ -339,11 +413,11 @@ def _ground_touching(model, hf, hc, duv, fk_p) -> float:
     return float((depth > 0).float().sum(0).mean())
 
 
-def _compare_dyn(K, model, got, ref, what):
+def _compare_dyn(K, model, got, ref, what, tol=DYN_TOL):
     lay = K.dyn_out_layout(model.nj)
     g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
     errs = {k: float((g[k] - r[k]).abs().max()) for k in g}
-    bad = {k: e for k, e in errs.items() if not e <= DYN_TOL[k]}
+    bad = {k: e for k, e in errs.items() if not e <= tol[k]}
     if bad:
         raise AssertionError(f"kernel B differs from its plain version "
                              f"{what}: {bad}")
@@ -577,11 +651,72 @@ def phase_training(device="cuda", num_envs=B, iterations=3, warmup=1,
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
+def phase_mob_training(device="cuda", num_envs=None, iterations=3,
+                       warmup=1, overrides=()):
+    """go1_mob through the port's entry points (`wtw_tpu_torch.train.build`
+    and `Runner.learn`) at the preset's 4000 envs unless `num_envs` is
+    given. Counts are set to 0 after the warm-up, just before the measured
+    iterations, and read just after them."""
+    from wtw_tpu_torch.physics import kernels as K
+    from wtw_tpu_torch.terrain import build_terrain
+    from wtw_tpu_torch.train import build
+    dev = torch.device(device)
+    run_dir = tempfile.mkdtemp(prefix="wtw_chip_smoke_mob_")
+    try:
+        t0 = time.perf_counter()
+        env, runner = build("go1_mob", num_envs, list(overrides), dev,
+                            seed=SEED, run_dir=run_dir, log_freq=1,
+                            save_interval=0)
+        build_s = time.perf_counter() - t0
+        # the field on the card is the host's map, built once more here
+        t0 = time.perf_counter()
+        tm = build_terrain(env.cfg.terrain, seed=SEED)
+        terrain_build_s = time.perf_counter() - t0
+        if not torch.equal(env.hf.heights.cpu(), torch.from_numpy(tm.heights)):
+            raise AssertionError("go1_mob: the heightfield on the device is "
+                                 "not the host's map")
+        quiet = lambda *a: None
+        warm_walls = runner.learn(warmup, log_fn=quiet) if warmup else []
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for k in K.KERNELS:
+            k.launches = 0
+        walls = runner.learn(iterations, log_fn=quiet)
+        launches = {k.name: k.launches for k in K.KERNELS}
+        stats = runner.last_stats
+        losses = {k: float(stats[k]) for k in (
+            "loss", "surrogate_loss", "value_loss", "adaptation_loss",
+            "kl_mean")}
+        if not all(math.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"non-finite losses: {losses}")
+        steps = runner.args.num_steps_per_env * env.num_envs
+        expected = iterations * runner.args.num_steps_per_env \
+            * env.cfg.control.decimation
+        return dict(
+            num_envs=env.num_envs, num_obs=env.num_obs,
+            num_obs_history=env.num_obs_history,
+            num_privileged_obs=env.num_privileged_obs,
+            control_type=env.cfg.control.control_type,
+            heightfield_shape=list(env.hf.shape),
+            heightfield_flat=env.hf.is_flat, build_s=build_s,
+            terrain_build_s=terrain_build_s, iterations=iterations,
+            warmup_wall_s=warm_walls, iteration_wall_s=walls,
+            env_steps_per_s=[steps / w for w in walls],
+            max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+            losses=losses, launches=launches,
+            expected_launches_per_kernel=expected,
+            mean_step_reward=float(stats["mean_step_reward"]),
+            mean_episode_length=float(stats["mean_episode_length"]))
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
-                    help="only phases 1-5 and 8-9 (device, build and the "
-                         "kernel cases), with no result line: to time the "
+                    help="only phases 1-5, 8-9 and 12 (device, build and "
+                         "the kernel cases), with no result line: to time the "
                          "kernels of another checkout, copy this file into "
                          "it and run it there")
     args = ap.parse_args(argv)
@@ -627,7 +762,8 @@ def main(argv=None) -> int:
                              ("kernel_b", phase_kernel_b, model),
                              ("ragged", phase_ragged, model),
                              ("kernel_a_go2", phase_kernel_a, go2),
-                             ("kernel_b_ceiling", phase_kernel_b_ceiling, go2)):
+                             ("kernel_b_ceiling", phase_kernel_b_ceiling, go2),
+                             ("kernel_b_edges", phase_kernel_b_edges, model)):
             t0 = time.perf_counter()
             emit({"phase": phase, **fn(m, dev),
                   "seconds": time.perf_counter() - t0})
@@ -659,15 +795,27 @@ def main(argv=None) -> int:
           "seconds": time.perf_counter() - t0})
     _check_launches("parkour training", pk)
 
+    t0 = time.perf_counter()
+    results["kernel_b_edges"] = phase_kernel_b_edges(model, dev)
+    emit({"phase": "kernel_b_edges", **results["kernel_b_edges"],
+          "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    mob = phase_mob_training()
+    emit({"phase": "mob_training", **mob,
+          "seconds": time.perf_counter() - t0})
+    _check_launches("go1_mob training", mob)
+
     ka, kb, rg = results["kernel_a"], results["kernel_b"], results["ragged"]
     ka2, kc = results["kernel_a_go2"], results["kernel_b_ceiling"]
-    worst_b = max(list(kb.values()) + [rg["kernel_b"]],
+    ke = results["kernel_b_edges"]
+    worst_b = max(list(kb.values()) + [rg["kernel_b"], ke],
                   key=lambda r: r["max_abs_err"])
     by_path = lambda name: {"go1_flat": tr["launches"][name],
-                            "parkour": pk["launches"][name]}
+                            "parkour": pk["launches"][name],
+                            "go1_mob": mob["launches"][name]}
     kernels = [
         dict(name=K.FK.name, route="cuda", source=K.FK.source,
-             replaces=K.FK.replaces, launches=pk["launches"][K.FK.name],
+             replaces=K.FK.replaces, launches=mob["launches"][K.FK.name],
              launches_by_path=by_path(K.FK.name),
              max_abs_err=max(ka["max_abs_err"], ka2["max_abs_err"],
                              rg["kernel_a"]["max_abs_err"]),
@@ -681,7 +829,7 @@ def main(argv=None) -> int:
              launch_shape=shape[K.FK.name], library_ms=None),
         dict(name=K.DYNAMICS.name, route="cuda", source=K.DYNAMICS.source,
              replaces=K.DYNAMICS.replaces,
-             launches=pk["launches"][K.DYNAMICS.name],
+             launches=mob["launches"][K.DYNAMICS.name],
              launches_by_path=by_path(K.DYNAMICS.name),
              max_abs_err=max(worst_b["max_abs_err"], kc["max_abs_err"],
                              kc["no_ceiling_max_abs_err"]),
@@ -704,6 +852,9 @@ def main(argv=None) -> int:
              rough_plain_ms=kb["rough"]["plain_ms"],
              rough_bound_ms=kb["rough"]["bound_ms"],
              ragged_4000_ms=rg["kernel_b"]["ms"],
+             edges_ms=ke["ms"], edges_call_ms=ke["call_ms"],
+             edges_plain_ms=ke["plain_ms"], edges_bound_ms=ke["bound_ms"],
+             edges_max_abs_err=ke["max_abs_err"],
              launch_shape=shape[K.DYNAMICS.name], library_ms=None),
     ]
     emit({"kernels": kernels})

@@ -132,16 +132,15 @@ def test_episode_reset_on_timeout():
     assert int(info["num_resets"]) == 4
 
 
-@pytest.mark.parametrize("preset", ["go1_mob", "go2_flat"])
+@pytest.mark.parametrize("preset", ["go2_mob", "go2_flat"])
 def test_unported_configs_raise(preset, tmp_path):
-    """Presets without a ported slice raise. go1_mob's config needs what
-    LeggedEnv does not have yet (heightfield terrain, gait clock, ...);
-    go2_flat's robot spec ships with the parkour slice, so LeggedEnv builds
-    it, but the preset has no parity test and the training entry point
-    refuses it."""
+    """Presets without a ported slice raise. go2_mob's config needs what
+    LeggedEnv does not have yet (Go2's actuator net); go2_flat's robot spec
+    ships with the parkour slice, so LeggedEnv builds it, but the preset
+    has no parity test and the training entry point refuses it."""
     from wtw_tpu_torch.train import build
     cfg = tcfg.PRESETS[preset](num_envs=4)
-    if preset == "go1_mob":
+    if preset == "go2_mob":
         with pytest.raises(NotImplementedError):
             LeggedEnv(cfg, load_robot(cfg.asset.robot), device="cpu")
     with pytest.raises(NotImplementedError):

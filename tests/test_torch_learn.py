@@ -69,7 +69,7 @@ def test_actor_critic_forward_with_converted_weights():
 
 
 class _Dims:
-    """What the learners read from an env."""
+    """What the learners read from an env (go1_flat-like, narrow)."""
     num_obs, num_privileged_obs, num_actions = 6, 2, 4
     num_obs_history = 18
     num_envs = num_train_envs = 16
@@ -77,14 +77,20 @@ class _Dims:
     device = torch.device("cpu")
 
 
-def test_ppo_minibatch_step_matches_jax():
+class _MobDims(_Dims):
+    """go1_mob's shapes: obs 70 x 30 history, 2 privileged obs, 12
+    actions."""
+    num_obs, num_privileged_obs, num_actions = 70, 2, 12
+    num_obs_history = 30 * 70
+
+
+def _check_minibatch_step(d, param_atol=1e-6):
     """One PPO minibatch step + adaptation substep (1 epoch x 1 minibatch)
-    on the same batch, permutation and weights. Losses, KL and the adapted
-    learning rate at rtol 1e-5; parameters after the step at atol 1e-6
-    (Adam's first step moves each weight by ~lr x sign(grad) = 1e-3 x 1.5,
-    so 1e-6 catches any wrong sign, scale or clip)."""
-    T, N = 4, 16
-    d = _Dims()
+    on the same batch, permutation and weights, against JAX. Losses, KL and
+    the adapted learning rate at rtol 1e-5; parameters after the step at
+    `param_atol` (Adam's first step moves each weight by ~lr x sign(grad) =
+    1e-3 x 1.5, so 1e-6 catches any wrong sign, scale or clip)."""
+    T, N = 4, d.num_envs
     small = dict(actor_hidden_dims=(32, 16), critic_hidden_dims=(32, 16),
                  adaptation_hidden_dims=(16,))
     jargs = jppo.PPOArgs(num_learning_epochs=1, num_mini_batches=1,
@@ -132,8 +138,24 @@ def test_ppo_minibatch_step_matches_jax():
     np.testing.assert_allclose(t_stats["lr"], float(j_stats["lr"]), rtol=1e-6)
     got = learner.ac.state_dict()
     for k, v in params_from_jax(jax.tree.map(np.asarray, j_ts.params)).items():
-        np.testing.assert_allclose(got[k].numpy(), v.numpy(), atol=1e-6,
-                                   err_msg=k)
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(),
+                                   atol=param_atol, err_msg=k)
+
+
+def test_ppo_minibatch_step_matches_jax():
+    """`_check_minibatch_step` at narrow go1_flat-like shapes."""
+    _check_minibatch_step(_Dims())
+
+
+def test_ppo_minibatch_step_matches_jax_on_go1_mob_shapes():
+    """`_check_minibatch_step` at go1_mob's shapes (a 2100-wide history
+    into the adaptation module and the actor) and narrow widths.
+    Parameters at atol 1e-5: in the PPO step, 15 of the adaptation
+    module's 33,600 first-layer weights have gradients of 2e-9 to 3e-8, at
+    Adam's eps (1e-8), where the step lr g / (|g| + eps) turns on the last
+    bits of an fp32 sum (they land up to 6e-6 apart on the two sides); 1e-5
+    is still 150x below one step, so a wrong sign, scale or clip fails."""
+    _check_minibatch_step(_MobDims(), param_atol=1e-5)
 
 
 def _tiny_runner(tmp_path, seed=0):
@@ -179,7 +201,7 @@ def test_policy_export_drives_deploy_policy(tmp_path):
     np.testing.assert_allclose(deployed(oh), want, atol=1e-5)
 
 
-@pytest.mark.parametrize("preset", ["go1_mob", "b1_flat"])
+@pytest.mark.parametrize("preset", ["b1_mob", "b1_flat"])
 def test_train_cli_refuses_unported_presets(preset, tmp_path):
     with pytest.raises(NotImplementedError):
         build(preset, num_envs=4, device="cpu", run_dir=str(tmp_path))
@@ -193,3 +215,32 @@ def test_train_cli_runs_one_iteration(tmp_path):
           "ac.critic_hidden_dims=16", "--set", "ac.adaptation_hidden_dims=8"])
     assert os.path.exists(os.path.join(str(tmp_path), "checkpoints",
                                        "policy_last.npz"))
+
+
+def _mob_cli(run_dir, *extra):
+    from wtw_tpu_torch.train import main
+    main(["--preset", "go1_mob", "--device", "cpu", "--num-envs", "4",
+          "--iterations", "1", "--log-freq", "1", "--run-dir", str(run_dir),
+          "--set", "terrain.num_rows=3", "--set", "terrain.num_cols=3",
+          "--set", "ppo.num_steps_per_env=2", "--set",
+          "ac.actor_hidden_dims=16", "--set", "ac.critic_hidden_dims=16",
+          "--set", "ac.adaptation_hidden_dims=8", *extra])
+
+
+def test_train_cli_go1_mob_runs_and_resumes(tmp_path):
+    """go1_mob through the CLI on a 3 x 3-cell map at narrow widths: one
+    iteration writes `policy_last.npz` and `state_last.pt`; `--resume` of
+    that state continues the iteration count (1, not 0) in the same CSV;
+    the same with `--actuator-model-wrapper`, which starts the wrapper's
+    state beside the resumed world. A JAX `.pkl` is refused."""
+    ck = os.path.join(str(tmp_path), "checkpoints")
+    _mob_cli(tmp_path)
+    assert os.path.exists(os.path.join(ck, "policy_last.npz"))
+    state = os.path.join(ck, "state_last.pt")
+    _mob_cli(tmp_path, "--resume", state)
+    _mob_cli(tmp_path, "--resume", state, "--actuator-model-wrapper")
+    with open(os.path.join(str(tmp_path), "metrics.csv")) as f:
+        its = [line.split(",")[0] for line in f.read().splitlines()[1:]]
+    assert its == ["0", "1", "2"]
+    with pytest.raises(NotImplementedError):
+        _mob_cli(tmp_path, "--resume", os.path.join(ck, "state_last.pkl"))

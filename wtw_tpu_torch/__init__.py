@@ -7,10 +7,14 @@ port module has an obvious counterpart:
   kernels (`wtw_tpu/physics/batched.py` `_pallas_fk`, `_pallas_dynamics`)
   are CUDA C++ kernels under ``csrc/`` with plain-PyTorch versions beside
   them (`physics/kernels.py`).
-- ``wtw_tpu_torch.envs``    — `LeggedEnv`, batched backend, flat ground.
+- ``wtw_tpu_torch.envs``    — `LeggedEnv` (batched backend, flat ground or
+  Stack-A terrain, PD control or the actuator net, the gait clock),
+  `ParkourEnv`, the actuator-model wrapper.
+- ``wtw_tpu_torch.terrain`` — the Stack-A and parkour maps (numpy).
 - ``wtw_tpu_torch.learn``   — PPO with concurrent state estimation and the
   `Runner`.
-- ``wtw_tpu_torch.models``  — robot specs and the actor-critic.
+- ``wtw_tpu_torch.models``  — robot specs, the actor-critic and the
+  actuator net.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``. The
 package imports torch and numpy only — never jax, flax, optax or wtw_tpu.

@@ -56,10 +56,11 @@ def _generator(dev, seed):
 
 
 def world_from_jax(world, device="cpu", seed: int = 0) -> WorldState:
-    """JAX `WorldState` (numpy leaves) -> the port's WorldState.
-
-    The JAX per-env RNG keys and the actuator-net history have no
-    counterpart; the port's generator is seeded with `seed`."""
+    """JAX `WorldState` (numpy leaves) -> the port's WorldState: every env
+    field, the gait clock and the actuator-net history included, the
+    curriculum weights, the observation history, the gravity offset and the
+    step counter. The JAX per-env RNG keys have no counterpart; the port's
+    generator is seeded with `seed`."""
     dev = torch.device(device)
     t = lambda x, dtype=None: _tensor(x, dev, dtype)
     e = world.env
@@ -77,6 +78,15 @@ def world_from_jax(world, device="cpu", seed: int = 0) -> WorldState:
                       gravity_offset=t(world.gravity_offset),
                       common_step=int(np.asarray(world.common_step)),
                       gen=_generator(dev, seed))
+
+
+def actuator_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX actuator-net parameters {'w0': (6, 32), 'b0': (32,), ...}
+    (numpy leaves, as `wtw_tpu.models.actuator_net.load_actuator_net` gives
+    them) -> the port's, for `models.actuator_net.apply_actuator_net`
+    (the same keys and (in, out) layout, as float32 CPU tensors)."""
+    return {k: torch.from_numpy(np.array(v, np.float32))
+            for k, v in params.items()}
 
 
 def cat_params_from_jax(tree) -> Dict[str, torch.Tensor]:

@@ -11,11 +11,11 @@ Randomness comes from one `torch.Generator` per world (`WorldState.gen`),
 seeded by `init_state(seed)`; the JAX env's per-env key streams cannot be
 reproduced in torch, so the two envs agree only where no draw is made.
 
-Ported for this slice: flat ground (`terrain.mesh_type == 'plane'`), PD
-control, no gait clock. The vmap backend, multi-embodiment batches, the
-actuator net, heightfield terrain with its per-step corner cache, measured
-heights and the gait clock are later slices; the constructor raises for a
-config that needs them.
+Ported: flat ground and Stack-A heightfield terrain (the corner rows
+gathered once per policy step and reused by the other substeps), PD
+control and the actuator net, the gait clock, pushes, rigid-body DR
+re-draws on reset, edge teleport and the measured-height terminal check.
+The vmap backend and multi-embodiment batches are later slices.
 """
 from __future__ import annotations
 
@@ -27,12 +27,14 @@ import torch
 
 from .. import resolve_device
 from ..config import Cfg
+from ..models.actuator_net import apply_actuator_net, load_actuator_net
 from ..models.robot import RobotModel, default_joint_angles
 from ..physics import (EngineParams, HeightField, PhysicsState,
                        flat_heightfield, physics_step_batched)
+from ..physics.heightfield import height_min3
 from ..utils import quat as quat_util
 from . import curriculum as curr
-from . import observations
+from . import gait, observations
 from .rewards import REWARD_FNS, RewardCtx, active_reward_terms
 
 # command_sums metric tail (legged_robot.py:1425-1429)
@@ -64,6 +66,11 @@ class EnvState:
     last_joint_qd: torch.Tensor
     torques: torch.Tensor
     lag_buffer: torch.Tensor           # (N, lag+1, nj)
+    # actuator-net history (legged_robot.py:1255-1258)
+    joint_pos_err_last: torch.Tensor
+    joint_pos_err_last_last: torch.Tensor
+    joint_vel_last: torch.Tensor
+    joint_vel_last_last: torch.Tensor
     friction: torch.Tensor
     restitution: torch.Tensor
     payload: torch.Tensor
@@ -102,21 +109,10 @@ class LeggedEnv:
     def __init__(self, cfg: Cfg, model: RobotModel,
                  heightfield: Optional[HeightField] = None,
                  env_origins: Optional[np.ndarray] = None, device=None):
-        unported = []
-        if cfg.control.control_type != "P":
-            unported.append(f"control_type={cfg.control.control_type!r}")
-        if cfg.terrain.mesh_type != "plane" or cfg.terrain.measure_heights:
-            unported.append("heightfield terrain / measured heights")
-        if cfg.env.observe_gait_commands:
-            unported.append("the gait clock")
-        if cfg.domain_rand.push_robots:
-            unported.append("pushes")
-        if cfg.domain_rand.randomize_rigids_after_start:
-            unported.append("rigid-body DR re-draws on reset")
-        if unported:
+        if cfg.control.control_type not in ("P", "actuator_net"):
             raise NotImplementedError(
-                "wtw_tpu_torch.LeggedEnv supports flat ground with PD "
-                "control so far; not yet ported: " + ", ".join(unported))
+                f"control_type={cfg.control.control_type!r}: the port has "
+                f"PD control and the actuator net")
         self.device = resolve_device(device)
         dev = self.device
         self.cfg = cfg
@@ -219,6 +215,24 @@ class LeggedEnv:
             env_origins = org
         self.env_origins = f32(env_origins)
         self.base_init_pos = f32(cfg.init_state.pos)
+        self.push_interval = min(
+            int(np.ceil(dr.push_interval_s / self.dt)), i32)
+
+        # actuator net (legged_robot.py:1238-1253): the JAX package's
+        # converted weights, of which the port ships its own copies
+        self.actuator_params = None
+        if cfg.control.control_type == "actuator_net":
+            for name in (model.name, cfg.asset.robot):
+                try:
+                    self.actuator_params = load_actuator_net(
+                        f"actuator_{name}", device=dev)
+                    break
+                except FileNotFoundError:
+                    pass
+            else:
+                raise NotImplementedError(
+                    f"no actuator net for robot {cfg.asset.robot!r} in the "
+                    f"port yet")
 
     # ------------------------------------------------------------------
     def _uniform(self, gen, shape, lo, hi):
@@ -247,6 +261,8 @@ class LeggedEnv:
             torques=zj(),
             lag_buffer=torch.zeros(N, cfg.domain_rand.lag_timesteps + 1, nj,
                                    device=dev),
+            joint_pos_err_last=zj(), joint_pos_err_last_last=zj(),
+            joint_vel_last=zj(), joint_vel_last_last=zj(),
             **self._sample_rigid_dr(gen), **self._sample_dof_dr(gen),
             last_contacts=torch.zeros(N, 4, dtype=torch.bool, device=dev),
             feet_air_time=z4(),
@@ -360,9 +376,11 @@ class LeggedEnv:
         return dataclasses.replace(world, env=env, curriculum_weights=weights)
 
     # ------------------------------------------------------------------
-    # torque model (legged_robot.py:907-946), PD control
+    # torque model (legged_robot.py:907-946)
     # ------------------------------------------------------------------
     def _compute_torques(self, s: EnvState, actions_scaled: torch.Tensor):
+        """One substep's torques: (torques, lag buffer, joint_pos_target,
+        actuator-net history updates)."""
         if self.cfg.domain_rand.randomize_lag_timesteps:
             lag = torch.cat([s.lag_buffer[:, 1:], actions_scaled[:, None]],
                             dim=1)
@@ -371,11 +389,34 @@ class LeggedEnv:
             lag = s.lag_buffer
             target = actions_scaled + self.default_joint_q
         q, qd = s.phys.joint_q, s.phys.joint_qd
-        tau = (self.p_gains * s.Kp_factor * (target - q + s.motor_offset)
-               - self.d_gains * s.Kd_factor * qd)
+        if self.actuator_params is not None:
+            pos_err = q - target + s.motor_offset
+            tau = apply_actuator_net(
+                self.actuator_params, pos_err, s.joint_pos_err_last,
+                s.joint_pos_err_last_last, qd, s.joint_vel_last,
+                s.joint_vel_last_last)
+            hist = dict(joint_pos_err_last=pos_err,
+                        joint_pos_err_last_last=s.joint_pos_err_last,
+                        joint_vel_last=qd,
+                        joint_vel_last_last=s.joint_vel_last)
+        else:
+            tau = (self.p_gains * s.Kp_factor * (target - q + s.motor_offset)
+                   - self.d_gains * s.Kd_factor * qd)
+            hist = {}
         lim = self.model.effort_limit
         tau = torch.clamp(tau * s.motor_strength, -lim, lim)
-        return tau, lag, target
+        return tau, lag, target, hist
+
+    def _substep(self, s: EnvState, actions_scaled, grav_off, **cache_kw):
+        tau, lag, target, hist = self._compute_torques(s, actions_scaled)
+        res = physics_step_batched(
+            self.model, self.hf, self.engine_params, s.phys, tau,
+            s.friction, s.restitution, payload_mass=s.payload,
+            com_offset=s.com_displacement, external_accel=grav_off,
+            **cache_kw)
+        s = dataclasses.replace(s, phys=res[0], lag_buffer=lag,
+                                joint_pos_target=target, torques=tau, **hist)
+        return s, res[1:]
 
     # ------------------------------------------------------------------
     # the step
@@ -389,16 +430,19 @@ class LeggedEnv:
         prev_foot_vel = world.env.prev_foot_velocities
         actions_scaled = actions * self.action_scale_vec
 
-        # decimation loop: both physics kernels once per substep
+        # decimation loop: both physics kernels once per substep; on a
+        # heightfield the corner rows gathered at the first substep serve
+        # the other three (ControlCfg.hf_substep_cache)
         s = dataclasses.replace(world.env, actions=actions)
-        for _ in range(cfg.control.decimation):
-            tau, lag, target = self._compute_torques(s, actions_scaled)
-            phys, cinfo = physics_step_batched(
-                self.model, self.hf, self.engine_params, s.phys, tau,
-                s.friction, s.restitution, payload_mass=s.payload,
-                com_offset=s.com_displacement, external_accel=grav_off)
-            s = dataclasses.replace(s, phys=phys, lag_buffer=lag,
-                                    joint_pos_target=target, torques=tau)
+        if cfg.control.hf_substep_cache and not self.hf.is_flat:
+            s, (cinfo, hfc) = self._substep(s, actions_scaled, grav_off,
+                                            return_hf_cache=True)
+            for _ in range(cfg.control.decimation - 1):
+                s, (cinfo,) = self._substep(s, actions_scaled, grav_off,
+                                            hf_cache=hfc)
+        else:
+            for _ in range(cfg.control.decimation):
+                s, (cinfo,) = self._substep(s, actions_scaled, grav_off)
         env = dataclasses.replace(s, episode_length=s.episode_length + 1)
         common_step = world.common_step + 1
         world = dataclasses.replace(world, env=env, common_step=common_step)
@@ -419,6 +463,42 @@ class LeggedEnv:
             world, (env.episode_length % self.resample_interval) == 0)
         env = world.env
         gen = world.gen
+
+        if cfg.env.observe_gait_commands:
+            g_idx, f_idx, clock, dclock, hclock, desired = gait.step_gait(
+                env.gait_index, env.commands, self.dt,
+                cfg.rewards.kappa_gait_probs, cfg.commands.pacing_offset)
+            env = dataclasses.replace(
+                env, gait_index=g_idx, foot_indices=f_idx,
+                clock_inputs=clock, doubletime_clock=dclock,
+                halftime_clock=hclock, desired_contact_states=desired)
+
+        # pushes (legged_robot.py:1017-1026)
+        dr = cfg.domain_rand
+        if dr.push_robots:
+            push = (env.episode_length % self.push_interval) == 0
+            vel = self._uniform(gen, (self.num_envs, 2), -dr.max_push_vel_xy,
+                                dr.max_push_vel_xy)
+            lin = env.phys.base_lin_vel
+            lin = _where(push, torch.cat([vel, lin[:, 2:]], dim=-1), lin)
+            env = dataclasses.replace(env, phys=dataclasses.replace(
+                env.phys, base_lin_vel=lin))
+
+        # edge wrap-around teleport (_teleport_robots,
+        # legged_robot.py:1028-1051)
+        t = cfg.terrain
+        if t.teleport_robots and t.mesh_type == "heightfield":
+            pos = env.phys.base_pos
+            x, y = pos[:, 0], pos[:, 1]
+            span_x = t.terrain_length * (t.num_rows - 1)
+            hi_x = t.terrain_length * t.num_rows
+            span_y = t.terrain_width * (t.num_cols - 1)
+            hi_y = t.terrain_width * t.num_cols
+            th = t.teleport_thresh
+            x = x + span_x * (x < th).float() - span_x * (x > hi_x - th).float()
+            y = y + span_y * (y < th).float() - span_y * (y > hi_y - th).float()
+            env = dataclasses.replace(env, phys=dataclasses.replace(
+                env.phys, base_pos=torch.stack([x, y, pos[:, 2]], dim=-1)))
 
         # periodic dof-property re-randomization (legged_robot.py:697-699)
         dr_mask = (env.episode_length % self.rand_interval) == 0
@@ -446,7 +526,14 @@ class LeggedEnv:
         timed_out = env.episode_length >= self.max_episode_length
         reset = (cinfo.base_contact > 1.0) | timed_out
         if cfg.rewards.use_terminal_body_height:
-            reset |= phys.base_pos[:, 2] < cfg.rewards.terminal_body_height
+            # over the measured terrain when height sensing is on, else the
+            # world z (measured heights 0)
+            body_height = phys.base_pos[:, 2]
+            if cfg.terrain.measure_heights:
+                pts = self._height_points(phys.base_pos, phys.base_quat)
+                body_height = body_height - height_min3(
+                    self.hf, pts[..., :2]).mean(-1)
+            reset |= body_height < cfg.rewards.terminal_body_height
         if cfg.rewards.use_terminal_roll_pitch:
             roll, pitch, _ = quat_util.quat_to_euler_xyz(phys.base_quat)
             ori = cfg.rewards.terminal_body_ori
@@ -579,10 +666,21 @@ class LeggedEnv:
             last_last_actions=zeroed(env.last_last_actions),
             last_joint_qd=zeroed(env.last_joint_qd),
             lag_buffer=zeroed(env.lag_buffer),
+            joint_pos_err_last=zeroed(env.joint_pos_err_last),
+            joint_pos_err_last_last=zeroed(env.joint_pos_err_last_last),
+            joint_vel_last=zeroed(env.joint_vel_last),
+            joint_vel_last_last=zeroed(env.joint_vel_last_last),
             feet_air_time=zeroed(env.feet_air_time),
             last_contacts=zeroed(env.last_contacts),
             episode_sums=zeroed(env.episode_sums),
             **{k: _where(mask, v, getattr(env, k)) for k, v in new_dof.items()})
+        # rigid-body DR re-draw on reset (legged_robot.py:166-168)
+        dr = self.cfg.domain_rand
+        if dr.randomize_rigids_after_start and (dr.randomize_friction
+                                                or dr.randomize_restitution):
+            env = dataclasses.replace(env, **{
+                k: _where(mask, v, getattr(env, k))
+                for k, v in self._sample_rigid_dr(gen).items()})
         return dataclasses.replace(world, env=env)
 
     def observe(self, world: WorldState, gravity_offset=None):
@@ -621,6 +719,21 @@ class LeggedEnv:
         c = cfg.normalization.clip_observations
         return torch.clamp(obs, -c, c), torch.clamp(priv, -c, c)
 
+    def _height_points(self, base_pos, base_quat):
+        """Yaw-rotated height measurement grid (legged_robot.py:1756-1770):
+        (N, P, 3) world points."""
+        t, dev = self.cfg.terrain, self.device
+        gx, gy = torch.meshgrid(
+            torch.tensor(t.measured_points_x, dtype=torch.float32, device=dev),
+            torch.tensor(t.measured_points_y, dtype=torch.float32, device=dev),
+            indexing="ij")
+        pts = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                           torch.zeros(gx.numel(), device=dev)], -1)
+        N, P = base_pos.shape[0], pts.shape[0]
+        q = base_quat[:, None].expand(N, P, 4)
+        return (quat_util.quat_apply_yaw(q, pts.expand(N, P, 3))
+                + base_pos[:, None])
+
     def get_observations(self, world: WorldState):
         """HistoryWrapper.get_observations (history_wrapper.py:26-30):
         append the current obs to the history ring and return the dict."""
@@ -632,9 +745,23 @@ class LeggedEnv:
 
 
 def make_legged_env(cfg: Cfg, robot: Optional[RobotModel] = None,
-                    device=None) -> LeggedEnv:
-    """Build a LeggedEnv for a flat-ground config (`wtw_tpu/envs/__init__.py`)."""
+                    device=None, seed: int = 0,
+                    eval_terrain_cfg=None) -> LeggedEnv:
+    """Build a LeggedEnv, generating the Stack-A terrain and the env
+    origins on it when `cfg.terrain.mesh_type` is 'heightfield'
+    (`wtw_tpu/envs/__init__.py`; the reference's LeggedRobot.create_sim,
+    legged_robot.py:493-515, 1675-1714). The map is built on the host with
+    numpy and moved to the env's device."""
     from ..models.robot import load_robot
     if robot is None:
         robot = load_robot(cfg.asset.robot)
+    if cfg.terrain.mesh_type == "heightfield":
+        from ..terrain import (assign_env_origins, build_terrain,
+                               to_heightfield)
+        dev = resolve_device(device)
+        tm = build_terrain(cfg.terrain, seed=seed, eval_cfg=eval_terrain_cfg)
+        origins, _, _ = assign_env_origins(tm, cfg.env.num_envs, cfg.terrain,
+                                           seed=seed)
+        return LeggedEnv(cfg, robot, heightfield=to_heightfield(tm, dev),
+                         env_origins=origins, device=dev)
     return LeggedEnv(cfg, robot, device=device)

@@ -39,7 +39,12 @@ def _sync(device):
 
 
 def world_blob(world) -> dict:
-    """WorldState -> a torch.save-able dict (the generator as its state)."""
+    """WorldState -> a torch.save-able dict (the generator as its state).
+    A wrapped env's world, (WorldState, wrapper state), keeps the wrapper
+    state under "wrapper"."""
+    if isinstance(world, tuple):
+        world, ws = world
+        return {**world_blob(world), "wrapper": dataclasses.asdict(ws)}
     return {"env": dataclasses.asdict(world.env),
             "curriculum_weights": world.curriculum_weights,
             "obs_history": world.obs_history,
@@ -51,6 +56,11 @@ def world_blob(world) -> dict:
 def world_from_blob(blob: dict, device):
     from ..envs.legged_env import EnvState, WorldState
     from ..physics import PhysicsState
+    if "wrapper" in blob:
+        from ..envs.wrappers import ActuatorModelState
+        blob = dict(blob)
+        ws = ActuatorModelState(**blob.pop("wrapper"))
+        return world_from_blob(blob, device), ws
     env = dict(blob["env"])
     env["phys"] = PhysicsState(**env["phys"])
     gen = torch.Generator(device=device)
@@ -162,6 +172,11 @@ class Runner:
         return path
 
     def load(self, path):
+        """Restore a checkpoint of the port's own (`state_<tag>.pt`)."""
+        if path.endswith((".pkl", ".pkl.gz")):
+            raise NotImplementedError(
+                f"{path}: resuming from a JAX checkpoint (.pkl) is not ported "
+                f"yet; resume from the port's own state_<tag>.pt")
         blob = torch.load(path, map_location=self.env.device,
                           weights_only=False)
         p = self.ppo
@@ -170,7 +185,15 @@ class Runner:
         p.adapt_opt.load_state_dict(blob["adapt_opt"])
         p.lr, p.iteration = blob["lr"], blob["iteration"]
         p.gen.set_state(blob["gen_state"])
-        self.world = world_from_blob(blob["world"], self.env.device)
+        world = world_from_blob(blob["world"], self.env.device)
+        # a run that adds or drops the actuator-model wrapper starts or
+        # drops the wrapper's state
+        wrapped = hasattr(self.env, "init_wrapper_state")
+        if wrapped and not isinstance(world, tuple):
+            world = (world, self.env.init_wrapper_state())
+        elif not wrapped and isinstance(world, tuple):
+            world = world[0]
+        self.world = world
         self.obs_dict = blob["obs_dict"]
         return self
 

@@ -288,11 +288,17 @@ def contact_groups(model: RobotModel) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# profiler range around kernel B's corner-row gathers (`trace.py` reads
+# their device time from it)
+GATHER_RANGE = "hf_corner_gather"
+
+
 def _gather_at(hf: HeightField, u: torch.Tensor, v: torch.Tensor):
     """Corner rows of the cells holding continuous coordinates (u, v)."""
-    u0f, v0f = torch.floor(u), torch.floor(v)
-    base = u0f.long() * hf.shape[1] + v0f.long()
-    return u0f, v0f, hf.corners[base].permute(2, 0, 1).contiguous()
+    with torch.profiler.record_function(GATHER_RANGE):
+        u0f, v0f = torch.floor(u), torch.floor(v)
+        base = u0f.long() * hf.shape[1] + v0f.long()
+        return u0f, v0f, hf.corners[base].permute(2, 0, 1).contiguous()
 
 
 def _hf_gather(hf: HeightField, x: torch.Tensor, y: torch.Tensor):

@@ -2,7 +2,8 @@
 `wtw_tpu/terrain`).
 
 - generators: sub-terrain primitives (replaces isaacgym.terrain_utils)
-- stack_a: the `TerrainMap` container
+- stack_a: the `TerrainMap` container and the Stack-A curriculum grid
+  (`build_terrain`, `assign_env_origins`)
 - parkour: parkour tracks with lava + ceilings (tasks/terrainParkour.py)
 
 `to_heightfield` and `ceiling_heightfield` put a map's ground and ceiling
@@ -13,7 +14,7 @@ from __future__ import annotations
 from ..physics.heightfield import HeightField, make_heightfield
 from .parkour import (CEILING_OPEN, ParkourTerrainCfg, assign_parkour_origins,
                       build_parkour)
-from .stack_a import TerrainMap
+from .stack_a import TerrainMap, assign_env_origins, build_terrain
 
 
 def to_heightfield(tm: TerrainMap, device="cpu") -> HeightField:
@@ -30,6 +31,6 @@ def ceiling_heightfield(tm: TerrainMap, device="cpu") -> HeightField:
 
 __all__ = [
     "CEILING_OPEN", "HeightField", "ParkourTerrainCfg", "TerrainMap",
-    "assign_parkour_origins", "build_parkour", "ceiling_heightfield",
-    "to_heightfield",
+    "assign_env_origins", "assign_parkour_origins", "build_parkour",
+    "build_terrain", "ceiling_heightfield", "to_heightfield",
 ]

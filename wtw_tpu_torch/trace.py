@@ -1,18 +1,22 @@
 """Where one training iteration's time goes on the GPU.
 
-    python -m wtw_tpu_torch.trace [--task go1_flat|parkour] [--num-envs 4096]
-                                  [--iterations 2]
+    python -m wtw_tpu_torch.trace [--task go1_flat|go1_mob|parkour]
+                                  [--num-envs N] [--iterations 2]
 
-Builds the task at full width (go1_flat through `train.build`, Go2 parkour
-with CaT on the full course through `train_parkour.build`), runs one
+Builds the task at full width (go1_flat and go1_mob through `train.build`,
+Go2 parkour with CaT on the full course through `train_parkour.build`; N
+defaults to 4096 envs, go1_mob's to its preset's 4000), runs one
 warm-up iteration, then times the rollout and the update of each further
 iteration separately (host clock, each ending in
 `torch.cuda.synchronize()`), and profiles the last one with
 `torch.profiler`: device time by kernel (self time summed over launches),
-by group (the two physics kernels, matrix products, everything else), the
-kernel launches of the iteration, and the device's busy share of the
-iteration's wall time (one stream, so kernel times do not overlap). Prints
-one JSON line per result. Needs a CUDA device.
+by group (the two physics kernels, matrix products, PyTorch's gathers
+such as the heightfield corner rows, everything else), the
+kernel launches of the iteration, the device time of kernel B's
+corner-row gathers (the kernels launched inside the `hf_corner_gather`
+profiler ranges of `physics/batched.py`), and the device's busy share of
+the iteration's wall time (one stream, so kernel times do not overlap).
+Prints one JSON line per result. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -23,12 +27,28 @@ import time
 
 import torch
 
+from .physics.batched import GATHER_RANGE
+
 
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def _range_device_us(prof, name: str):
+    """(device us, calls) of the kernels launched inside the CPU-side
+    profiler ranges called `name`."""
+    us, calls = 0.0, 0
+    for e in prof.events():
+        if e.name == name and e.device_type == torch.autograd.DeviceType.CPU:
+            calls += 1
+            for attr in ("device_time_total", "cuda_time_total"):
+                if hasattr(e, attr):
+                    us += float(getattr(e, attr))
+                    break
+    return us, calls
 
 
 def _group(name: str) -> str:
@@ -39,28 +59,31 @@ def _group(name: str) -> str:
         return "kernel B (dynamics)"
     if "gemm" in n or "cutlass" in n or "sm90_" in n or "xmma" in n:
         return "matrix products"
+    if "gather" in n:
+        return "gathers"
     return "other kernels"
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default="go1_flat",
-                    choices=["go1_flat", "parkour"])
-    ap.add_argument("--num-envs", type=int, default=4096)
+                    choices=["go1_flat", "go1_mob", "parkour"])
+    ap.add_argument("--num-envs", type=int, default=None)
     ap.add_argument("--iterations", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.task == "parkour":
         from .train_parkour import build as build_parkour
-        runner = build_parkour(args.num_envs, device="cuda", seed=args.seed,
+        runner = build_parkour(args.num_envs or 4096, device="cuda",
+                               seed=args.seed,
                                run_dir=tempfile.mkdtemp(), save_interval=0)
         env, learner = runner.env, runner.learner
         world, obs = runner.world, runner.obs_n
     else:
         from .train import build
-        env, runner = build("go1_flat", args.num_envs, device="cuda",
-                            seed=args.seed, run_dir=tempfile.mkdtemp(),
-                            save_interval=0)
+        n = args.num_envs or (None if args.task == "go1_mob" else 4096)
+        env, runner = build(args.task, n, device="cuda", seed=args.seed,
+                            run_dir=tempfile.mkdtemp(), save_interval=0)
         learner = runner.ppo
         world, obs = runner.world, runner.obs_dict
 
@@ -87,7 +110,7 @@ def main(argv=None):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.key]
+               and "#" not in e.key and e.key != GATHER_RANGE]
     by_name = sorted(((_device_us(e), e.count, e.key) for e in kernels),
                      reverse=True)
     groups = {}
@@ -95,6 +118,7 @@ def main(argv=None):
         g = groups.setdefault(_group(key), [0.0, 0])
         g[0] += us
         g[1] += count
+    gather_us, gather_calls = _range_device_us(prof, GATHER_RANGE)
     busy_s = sum(us for us, _, _ in by_name) / 1e6
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"device": name, "task": args.task,
@@ -106,7 +130,9 @@ def main(argv=None):
                       "launches_per_iteration": sum(
                           c for _, c, _ in by_name),
                       "groups": {k: {"device_ms": v[0] / 1e3, "launches": v[1]}
-                                 for k, v in groups.items()}}))
+                                 for k, v in groups.items()},
+                      "corner_row_gathers": {"device_ms": gather_us / 1e3,
+                                             "calls": gather_calls}}))
     print(json.dumps({"top_kernels": [
         {"name": key[:90], "device_ms": us / 1e3, "launches": count}
         for us, count, key in by_name[:15]]}))

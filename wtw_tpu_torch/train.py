@@ -2,6 +2,7 @@
 counterpart of `scripts/train.py`):
 
     python -m wtw_tpu_torch.train --preset go1_flat --num-envs 4096 --iterations 100
+    python -m wtw_tpu_torch.train --preset go1_mob --iterations 100
 
 Runs on the CUDA device unless `--device cpu` is given. Presets the port
 does not support yet raise.
@@ -16,14 +17,19 @@ import torch
 from . import config as C
 from . import resolve_device
 
-SUPPORTED_PRESETS = ("go1_flat",)
+SUPPORTED_PRESETS = ("go1_flat", "go1_mob")
 
 
 def build(preset: str, num_envs=None, overrides=(), device=None, seed=0,
-          run_dir=None, log_freq=10, save_interval=400):
+          run_dir=None, log_freq=10, save_interval=400, control=None,
+          actuator_model_wrapper=False, resume=None):
     """(env, Runner) for a preset; `overrides` are `section.field=value`
     strings routed like scripts/train.py: `ppo.*` to PPOArgs, `runner.*` to
-    RunnerArgs, `ac.*` to ACArgs, the rest to the Cfg tree."""
+    RunnerArgs, `ac.*` to ACArgs, the rest to the Cfg tree. `control`
+    overrides the control type ("P" or "actuator_net"),
+    `actuator_model_wrapper` wraps the env in `ActuatorModelWrapper`, and
+    `resume` is a checkpoint of the port's own (`state_<tag>.pt`) to
+    continue from."""
     from .envs import make_legged_env
     from .learn import PPOArgs, Runner, RunnerArgs
     from .models.actor_critic import ACArgs
@@ -41,6 +47,9 @@ def build(preset: str, num_envs=None, overrides=(), device=None, seed=0,
     if num_envs:
         cfg = dataclasses.replace(
             cfg, env=dataclasses.replace(cfg.env, num_envs=num_envs))
+    if control:
+        cfg = dataclasses.replace(cfg, control=dataclasses.replace(
+            cfg.control, control_type=control))
     pick = lambda pre: [s[len(pre):] for s in overrides if s.startswith(pre)]
     cfg = C.apply_overrides(cfg, [s for s in overrides if not s.startswith(
         ("ppo.", "runner.", "ac."))])
@@ -48,9 +57,13 @@ def build(preset: str, num_envs=None, overrides=(), device=None, seed=0,
     ac_args = C.apply_overrides(ACArgs(), pick("ac."))
     runner_args = C.apply_overrides(
         RunnerArgs(run_dir=run_dir or f"runs/{preset}/seed{seed}",
-                   log_freq=log_freq, save_interval=save_interval),
+                   log_freq=log_freq, save_interval=save_interval,
+                   resume=resume is not None, resume_path=resume),
         pick("runner."))
-    env = make_legged_env(cfg, device=dev)
+    env = make_legged_env(cfg, device=dev, seed=seed)
+    if actuator_model_wrapper:
+        from .envs.wrappers import ActuatorModelWrapper
+        env = ActuatorModelWrapper(env)
     runner = Runner(env, ppo_args, ac_args=ac_args, runner_args=runner_args,
                     seed=seed)
     return env, runner
@@ -64,8 +77,15 @@ def main(argv=None):
     ap.add_argument("--iterations", type=int, default=1000)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--run-dir", default=None)
+    ap.add_argument("--resume", default=None,
+                    help="checkpoint of the port (state_<tag>.pt) to resume")
     ap.add_argument("--log-freq", type=int, default=10)
     ap.add_argument("--save-interval", type=int, default=400)
+    ap.add_argument("--control", default=None, choices=["P", "actuator_net"],
+                    help="override the control type")
+    ap.add_argument("--actuator-model-wrapper", action="store_true",
+                    help="wrap the env with the Go2 actuator model "
+                         "(delay, friction, low-pass filter)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--set", action="append", default=[], metavar="K=V",
@@ -73,7 +93,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     env, runner = build(args.preset, args.num_envs, args.set, args.device,
                         args.seed, args.run_dir, args.log_freq,
-                        args.save_interval)
+                        args.save_interval, control=args.control,
+                        actuator_model_wrapper=args.actuator_model_wrapper,
+                        resume=args.resume)
     print(f"preset={args.preset} robot={env.cfg.asset.robot} "
           f"envs={env.num_envs} obs={env.num_obs} device={env.device} -> "
           f"{runner.runner_args.run_dir}")
