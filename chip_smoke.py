@@ -44,10 +44,31 @@ Phases, each printing one JSON line with its seconds:
    its go1 rough-ground path) for 1 warm-up and 3 measured iterations;
    each kernel's launch count over the measured iterations must be
    iterations x 24 x 4, and the field on the card must equal a second
-   host build of the map (whose seconds it reports).
+   host build of the map (whose seconds it reports);
+14. kernel_a_b1, kernel_b_b1, kernel_a_mini_cheetah, kernel_b_mini_cheetah:
+   both kernels against their plain versions on B1 (31 spheres, 55.7 kg)
+   and the mini-cheetah (52 spheres) at 4096 envs, kernel B on flat and
+   rough ground, from random states near each robot's standing pose;
+15. rollout_b1, rollout_mini_cheetah: 100 substeps from standing under the
+   PD gains of each robot's preset through both kernels: finite, with the
+   base height inside (0.4 h, 1.1 h) of the standing height h;
+16. terrain_training: Go2Terrain (`train_parkour --task terrain`: 4096
+   envs, the 10 x 20-cell Stack-A map with an 8 m border, a 660 x 1160
+   field, the trot clock, the Go2 actuator net, no ceiling) for 1 warm-up
+   and 3 measured iterations: each kernel launched exactly 288 times, and
+   kernel B never given a ceiling (its wrapper's calls are watched); then
+   one more measured iteration with `--reward-mode full`
+   (terrain_training_full_rewards, 96 launches each);
+17. presets_training: go2_flat, b1_flat and mini_cheetah_flat at 4096
+   envs, go2_mob at its preset's 4000 (the Go2 actuator net) and b1_mob at
+   its preset's 4096 (PD control), go2_mob and b1_mob on the full
+   1500 x 1500 map, each for 1 warm-up and 1 measured iteration with
+   exactly 96 launches of each kernel.
 
-With `--kernels` it runs phases 1-5, 8-9 and 12 only and prints no result
-line. This is how two versions of the kernels are compared in one call:
+Every training phase reports env steps/s, `max_memory_allocated` and its
+finite losses. With `--kernels` it runs phases 1-5, 8-9, 12 and 14 only
+(14 where the checkout ships the B1 and mini-cheetah specs) and prints no
+result line. This is how two versions of the kernels are compared in one call:
 copy this file into the other checkout and run it there with
 `--kernels`, then here, on the same cases (an older checkout reports no
 launch shape).
@@ -59,11 +80,12 @@ and replayed between CUDA events), the time per wrapper call (`call_ms`:
 CUDA events around 20 back-to-back calls, the wrapper's host work
 included) and the plain version's (`plain_ms`). In the kernels line `ms`
 and the per-case times (`kernel_ms`, `ceiling_ms`, `go1_ms`, `flat_ms`,
-`rough_ms`, `go2_no_ceiling_ms`, `ragged_4000_ms`, `edges_ms`) are device
-times per launch; before the kernels gave each env a team of lanes they
-were the events-over-calls times that are now `call_ms`. The line's
-`launches` is each kernel's count in this slice's path (go1_mob training),
-and `launches_by_path` holds the counts of every training phase.
+`rough_ms`, `go2_no_ceiling_ms`, `ragged_4000_ms`, `edges_ms`, `b1_ms`,
+`b1_flat_ms`, `mini_cheetah_rough_ms`, ...) are device times per launch;
+before the kernels gave each env a team of lanes they were the
+events-over-calls times that are now `call_ms`. The line's `launches` is
+each kernel's count in the newest slice's path (terrain training), and
+`launches_by_path` holds the counts of every training phase.
 
 Then the kernels line, the nvidia-smi line, and the result line. Exits
 non-zero, with no result line, when there is no CUDA device, when the port
@@ -164,7 +186,24 @@ def timings(fn, plain, plain_iters=20):
 
 STAND_Q = {"go1": [0.0, 0.8, -1.6] * 4,
            "go2": [0.1, 0.8, -1.5, -0.1, 0.8, -1.5,
-                   0.1, 1.0, -1.5, -0.1, 1.0, -1.5]}
+                   0.1, 1.0, -1.5, -0.1, 1.0, -1.5],
+           # the presets' default poses (config.py: B1_DEFAULT_JOINT_ANGLES;
+           # the mini-cheetah takes go1's), joints FR, FL, RR, RL
+           "b1": [-0.2, 0.8, -1.5, 0.2, 0.8, -1.5,
+                  -0.2, 1.0, -1.6, 0.2, 1.0, -1.6],
+           "mini_cheetah": [-0.1, 0.8, -1.5, 0.1, 0.8, -1.5,
+                            -0.1, 1.0, -1.5, 0.1, 1.0, -1.5]}
+# base height of the random kernel cases: a little below the height at
+# which the lowest sphere of the standing pose touches the ground (go1 and
+# Go2 0.32 m, B1 0.52 m, the mini-cheetah 0.47 m), so most envs touch
+KERNEL_Z = {"go1": 0.30, "go2": 0.30, "b1": 0.49, "mini_cheetah": 0.45}
+# the preset each new robot trains with (its gains and default pose)
+ROBOT_PRESET = {"b1": "b1_flat", "mini_cheetah": "mini_cheetah_flat"}
+
+
+def robot_key(model) -> str:
+    """go1, go2, b1 or mini_cheetah from the spec's name."""
+    return model.name.replace("_description", "")
 
 
 def random_states(rng, n, device, z=0.30, q0=STAND_Q["go1"]):
@@ -223,7 +262,8 @@ def bound_ms(n_bytes: float, n_flops: float):
 def phase_kernel_a(model, dev, n=B):
     from wtw_tpu_torch.physics import kernels as K
     rng = np.random.RandomState(SEED)
-    st = random_states(rng, n, dev, q0=STAND_Q[model.name.split("_")[0]])
+    st = random_states(rng, n, dev, z=KERNEL_Z[robot_key(model)],
+                       q0=STAND_Q[robot_key(model)])
     fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q],
                       1).T.contiguous()
     fb, fp = K.fk(model, fk_in)
@@ -383,11 +423,73 @@ def phase_rollout(model, dev, substeps=100):
                 launches=launched)
 
 
-def _dyn_case(model, dev, rng, z=0.30, n=B):
+def standing_height(model, q0) -> float:
+    """The base height at which the lowest sphere of pose q0 touches flat
+    ground (kernel A's plain version on one env)."""
+    from wtw_tpu_torch.physics import kernels as K
+    dev = q0.device
+    fk_in = torch.cat([torch.zeros(3, device=dev),
+                       torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev),
+                       q0])[:, None].contiguous()
+    _, fk_p = K.fk_plain(model, fk_in)
+    return float(-(fk_p[2, :, 0] - model.sph_radius).min())
+
+
+def phase_robot_rollout(model, dev, substeps=100):
+    """100 substeps from standing under the PD gains of the robot's preset
+    (B1: kp 100, kd 2.5; the mini-cheetah: kp 20, kd 0.5) through both
+    kernels, from the preset's default pose with the base at its standing
+    height h (the lowest sphere on the ground): finite, and the base
+    height in (0.4 h, 1.1 h). The plain versions settle B1 at ~0.57 h and
+    the mini-cheetah at ~0.57 h in this window (go1 at ~0.88 h)."""
+    from wtw_tpu_torch import config as C
+    from wtw_tpu_torch.models.robot import default_joint_angles
+    from wtw_tpu_torch.physics import (EngineParams, PhysicsState,
+                                       flat_heightfield, physics_step_batched)
+    from wtw_tpu_torch.physics import kernels as K
+    ctrl = C.PRESETS[ROBOT_PRESET[robot_key(model)]]()
+    q0 = default_joint_angles(model,
+                              dict(ctrl.init_state.default_joint_angles))
+    kp, kd = ctrl.control.stiffness, ctrl.control.damping
+    h = standing_height(model, q0)
+    lo, hi = 0.4 * h, 1.1 * h
+    hf = flat_heightfield(20.0, 0.5, device=dev)
+    s = PhysicsState(
+        base_pos=torch.tensor([0.0, 0.0, h], device=dev).expand(B, 3),
+        base_quat=torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).expand(B, 4),
+        base_lin_vel=torch.zeros(B, 3, device=dev),
+        base_ang_vel=torch.zeros(B, 3, device=dev),
+        joint_q=q0.expand(B, 12).clone(),
+        joint_qd=torch.zeros(B, 12, device=dev))
+    ones, zeros = torch.ones(B, device=dev), torch.zeros(B, device=dev)
+    before = (K.FK.launches, K.DYNAMICS.launches)
+    for _ in range(substeps):
+        tau = kp * (q0 - s.joint_q) - kd * s.joint_qd
+        s, _ = physics_step_batched(model, hf, EngineParams(), s, tau, ones,
+                                    zeros)
+    torch.cuda.synchronize()
+    z = s.base_pos[:, 2]
+    finite = all(bool(torch.isfinite(getattr(s, f)).all()) for f in (
+        "base_pos", "base_quat", "base_lin_vel", "base_ang_vel", "joint_q",
+        "joint_qd"))
+    launched = (K.FK.launches - before[0], K.DYNAMICS.launches - before[1])
+    if not (finite and bool((z > lo).all()) and bool((z < hi).all())
+            and launched == (substeps, substeps)):
+        raise AssertionError(
+            f"{model.name} roll-out failed: finite={finite} z in "
+            f"[{float(z.min())}, {float(z.max())}], bounds ({lo}, {hi}), "
+            f"launches={launched}")
+    return dict(substeps=substeps, kp=kp, kd=kd, standing_height=h,
+                z_bounds=[lo, hi], z_min=float(z.min()),
+                z_max=float(z.max()), launches=launched)
+
+
+def _dyn_case(model, dev, rng, n=B):
     """Kernel B's inputs at n envs from random near-standing states."""
     from wtw_tpu_torch.physics import kernels as K
     from wtw_tpu_torch.physics.batched import pack_state_rows
-    st = random_states(rng, n, dev, z=z, q0=STAND_Q[model.name.split("_")[0]])
+    key = robot_key(model)
+    st = random_states(rng, n, dev, z=KERNEL_Z[key], q0=STAND_Q[key])
     tau = torch.tensor(3.0 * rng.randn(n, 12).astype(np.float32), device=dev)
     fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q],
                       1).T.contiguous()
@@ -550,48 +652,89 @@ def phase_parkour_rollout(model, dev, substeps=100):
                 base_height_max=float(rel_z.max()), launches=launched)
 
 
-def phase_parkour_training(device="cuda", num_envs=B, iterations=3, warmup=1,
-                           overrides=()):
-    """Go2 parkour through the port's entry points
-    (`wtw_tpu_torch.train_parkour.build` and `ParkourRunner.learn`), at the
-    full course unless `overrides` cut it. Counts are set to 0 after the
-    warm-up, just before the measured iterations, and read just after."""
+class CeilingWatch:
+    """Counts the calls of kernel B's wrapper that pass a ceiling
+    (`ceil_h`), by wrapping `kernels.dynamics`, which the physics entry
+    calls through the module."""
+
+    def __init__(self):
+        from wtw_tpu_torch.physics import kernels as K
+        self.K, self.real, self.calls = K, K.dynamics, 0
+
+    def __enter__(self):
+        def watched(*args, ceil_h=None, **kw):
+            if ceil_h is not None:
+                self.calls += 1
+            return self.real(*args, ceil_h=ceil_h, **kw)
+        self.K.dynamics = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.K.dynamics = self.real
+
+
+def _measure(runner_learn, dev, iterations, warmup, num_envs, num_steps):
+    """Warm-up, then counts to 0, the measured iterations, and the counts:
+    -> (warm-up walls, walls, launches, calls of kernel B with a ceiling,
+    env steps/s, peak memory)."""
     from wtw_tpu_torch.physics import kernels as K
+    quiet = lambda *a: None
+    warm = runner_learn(warmup, log_fn=quiet) if warmup else []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for k in K.KERNELS:
+        k.launches = 0
+    with CeilingWatch() as watch:
+        walls = runner_learn(iterations, log_fn=quiet)
+    launches = {k.name: k.launches for k in K.KERNELS}
+    return dict(warmup_wall_s=warm, iteration_wall_s=walls,
+                env_steps_per_s=[num_steps * num_envs / w for w in walls],
+                max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
+                                      if dev.type == "cuda" else None),
+                launches=launches, dynamics_calls_with_ceiling=watch.calls)
+
+
+def _finite(losses, what):
+    if not all(math.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{what}: non-finite losses: {losses}")
+    return losses
+
+
+def phase_parkour_training(device="cuda", num_envs=B, iterations=3, warmup=1,
+                           overrides=(), task="parkour", reward_mode=None):
+    """`train_parkour` through the port's entry points
+    (`wtw_tpu_torch.train_parkour.build` and `ParkourRunner.learn`): Go2
+    parkour on the full course, or with `task="terrain"` Go2Terrain on its
+    Stack-A map (no ceiling), unless `overrides` cut them. Counts are set
+    to 0 after the warm-up, just before the measured iterations, and read
+    just after; kernel B's calls that carried a ceiling are counted too."""
     from wtw_tpu_torch.train_parkour import build
     dev = torch.device(device)
-    run_dir = tempfile.mkdtemp(prefix="wtw_chip_smoke_parkour_")
+    run_dir = tempfile.mkdtemp(prefix=f"wtw_chip_smoke_{task}_")
     try:
         t0 = time.perf_counter()
         runner = build(num_envs, list(overrides), dev, seed=SEED,
-                       run_dir=run_dir, log_freq=1, save_interval=0)
+                       run_dir=run_dir, log_freq=1, save_interval=0,
+                       task=task, reward_mode=reward_mode)
         build_s = time.perf_counter() - t0
         env, ln = runner.env, runner.learner
-        quiet = lambda *a: None
-        warm_walls = runner.learn(warmup, log_fn=quiet) if warmup else []
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        for k in K.KERNELS:
-            k.launches = 0
-        walls = runner.learn(iterations, log_fn=quiet)
-        launches = {k.name: k.launches for k in K.KERNELS}
+        rec = _measure(runner.learn, dev, iterations, warmup, env.num_envs,
+                       ln.args.num_steps)
         stats = runner.last_stats
-        losses = {k: float(stats[k]) for k in (
-            "loss", "pg_loss", "value_loss")}
-        if not all(math.isfinite(v) for v in losses.values()):
-            raise AssertionError(f"non-finite losses: {losses}")
-        steps = ln.args.num_steps * env.num_envs
-        expected = iterations * ln.args.num_steps * env.cfg.decimation
+        losses = _finite({k: float(stats[k]) for k in (
+            "loss", "pg_loss", "value_loss")}, f"{task} training")
         return dict(
+            task=task, reward_mode=env.cfg.reward_mode,
             num_envs=env.num_envs, num_obs=env.num_obs,
             heightfield_shape=list(env.hf.shape),
-            ceiling_flat=env.hf_ceiling.is_flat, build_s=build_s,
-            iterations=iterations, warmup_wall_s=warm_walls,
-            iteration_wall_s=walls,
-            env_steps_per_s=[steps / w for w in walls],
-            max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
-                                  if dev.type == "cuda" else None),
-            losses=losses, launches=launches,
-            expected_launches_per_kernel=expected,
+            has_ceiling=env.hf_ceiling is not None,
+            ceiling_flat=(None if env.hf_ceiling is None
+                          else env.hf_ceiling.is_flat),
+            actuator_net=env.actuator_params is not None,
+            gait_clock=env.cfg.use_gait_clocks, build_s=build_s,
+            iterations=iterations, **rec, losses=losses,
+            expected_launches_per_kernel=(
+                iterations * ln.args.num_steps * env.cfg.decimation),
             terrain_level_mean=float(stats["terrain_level_mean"]),
             mean_step_reward=float(stats["mean_step_reward"]))
     finally:
@@ -608,104 +751,50 @@ def _check_launches(name, rec):
                              f"times in the measured iterations: {off}")
 
 
-def phase_training(device="cuda", num_envs=B, iterations=3, warmup=1,
-                   overrides=()):
-    """go1_flat through the port's entry points (`wtw_tpu_torch.train.build`
-    and `Runner.learn`). Counts are set to 0 after the warm-up, just before
-    the measured iterations, and read just after them."""
-    from wtw_tpu_torch.physics import kernels as K
-    from wtw_tpu_torch.train import build
-    dev = torch.device(device)
-    run_dir = tempfile.mkdtemp(prefix="wtw_chip_smoke_")
-    try:
-        env, runner = build("go1_flat", num_envs, list(overrides), dev,
-                            seed=SEED, run_dir=run_dir, log_freq=1,
-                            save_interval=0)
-        quiet = lambda *a: None
-        warm_walls = runner.learn(warmup, log_fn=quiet) if warmup else []
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        for k in K.KERNELS:
-            k.launches = 0
-        walls = runner.learn(iterations, log_fn=quiet)
-        launches = {k.name: k.launches for k in K.KERNELS}
-        stats = runner.last_stats
-        losses = {k: float(stats[k]) for k in (
-            "loss", "surrogate_loss", "value_loss", "adaptation_loss",
-            "kl_mean")}
-        if not all(math.isfinite(v) for v in losses.values()):
-            raise AssertionError(f"non-finite losses: {losses}")
-        steps = runner.args.num_steps_per_env * env.num_envs
-        expected = iterations * runner.args.num_steps_per_env \
-            * env.cfg.control.decimation
-        return dict(
-            num_envs=env.num_envs, iterations=iterations,
-            warmup_wall_s=warm_walls, iteration_wall_s=walls,
-            env_steps_per_s=[steps / w for w in walls],
-            max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
-                                  if dev.type == "cuda" else None),
-            losses=losses, launches=launches,
-            expected_launches_per_kernel=expected,
-            mean_step_reward=float(stats["mean_step_reward"]))
-    finally:
-        shutil.rmtree(run_dir, ignore_errors=True)
-
-
-def phase_mob_training(device="cuda", num_envs=None, iterations=3,
-                       warmup=1, overrides=()):
-    """go1_mob through the port's entry points (`wtw_tpu_torch.train.build`
-    and `Runner.learn`) at the preset's 4000 envs unless `num_envs` is
-    given. Counts are set to 0 after the warm-up, just before the measured
-    iterations, and read just after them."""
-    from wtw_tpu_torch.physics import kernels as K
+def phase_preset_training(preset, device="cuda", num_envs=None, iterations=3,
+                          warmup=1, overrides=()):
+    """A preset of `wtw_tpu_torch.train` through the port's entry points
+    (`train.build` and `Runner.learn`) at `num_envs`, or the preset's own
+    count. On a Stack-A map, the field on the card must equal a second host
+    build of the map (whose seconds it reports). Counts are set to 0 after
+    the warm-up, just before the measured iterations, and read just after
+    them."""
     from wtw_tpu_torch.terrain import build_terrain
     from wtw_tpu_torch.train import build
     dev = torch.device(device)
-    run_dir = tempfile.mkdtemp(prefix="wtw_chip_smoke_mob_")
+    run_dir = tempfile.mkdtemp(prefix=f"wtw_chip_smoke_{preset}_")
     try:
         t0 = time.perf_counter()
-        env, runner = build("go1_mob", num_envs, list(overrides), dev,
+        env, runner = build(preset, num_envs, list(overrides), dev,
                             seed=SEED, run_dir=run_dir, log_freq=1,
                             save_interval=0)
         build_s = time.perf_counter() - t0
-        # the field on the card is the host's map, built once more here
-        t0 = time.perf_counter()
-        tm = build_terrain(env.cfg.terrain, seed=SEED)
-        terrain_build_s = time.perf_counter() - t0
-        if not torch.equal(env.hf.heights.cpu(), torch.from_numpy(tm.heights)):
-            raise AssertionError("go1_mob: the heightfield on the device is "
-                                 "not the host's map")
-        quiet = lambda *a: None
-        warm_walls = runner.learn(warmup, log_fn=quiet) if warmup else []
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(dev)
-        for k in K.KERNELS:
-            k.launches = 0
-        walls = runner.learn(iterations, log_fn=quiet)
-        launches = {k.name: k.launches for k in K.KERNELS}
+        terrain = {}
+        if not env.hf.is_flat:
+            t0 = time.perf_counter()
+            tm = build_terrain(env.cfg.terrain, seed=SEED)
+            terrain = dict(heightfield_shape=list(env.hf.shape),
+                           terrain_build_s=time.perf_counter() - t0)
+            if not torch.equal(env.hf.heights.cpu(),
+                               torch.from_numpy(tm.heights)):
+                raise AssertionError(f"{preset}: the heightfield on the "
+                                     f"device is not the host's map")
+        rec = _measure(runner.learn, dev, iterations, warmup, env.num_envs,
+                       runner.args.num_steps_per_env)
         stats = runner.last_stats
-        losses = {k: float(stats[k]) for k in (
+        losses = _finite({k: float(stats[k]) for k in (
             "loss", "surrogate_loss", "value_loss", "adaptation_loss",
-            "kl_mean")}
-        if not all(math.isfinite(v) for v in losses.values()):
-            raise AssertionError(f"non-finite losses: {losses}")
-        steps = runner.args.num_steps_per_env * env.num_envs
-        expected = iterations * runner.args.num_steps_per_env \
-            * env.cfg.control.decimation
+            "kl_mean")}, f"{preset} training")
         return dict(
-            num_envs=env.num_envs, num_obs=env.num_obs,
-            num_obs_history=env.num_obs_history,
+            preset=preset, robot=env.model.name, num_envs=env.num_envs,
+            num_obs=env.num_obs, num_obs_history=env.num_obs_history,
             num_privileged_obs=env.num_privileged_obs,
             control_type=env.cfg.control.control_type,
-            heightfield_shape=list(env.hf.shape),
-            heightfield_flat=env.hf.is_flat, build_s=build_s,
-            terrain_build_s=terrain_build_s, iterations=iterations,
-            warmup_wall_s=warm_walls, iteration_wall_s=walls,
-            env_steps_per_s=[steps / w for w in walls],
-            max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
-                                  if dev.type == "cuda" else None),
-            losses=losses, launches=launches,
-            expected_launches_per_kernel=expected,
+            heightfield_flat=env.hf.is_flat, **terrain, build_s=build_s,
+            iterations=iterations, **rec, losses=losses,
+            expected_launches_per_kernel=(
+                iterations * runner.args.num_steps_per_env
+                * env.cfg.control.decimation),
             mean_step_reward=float(stats["mean_step_reward"]),
             mean_episode_length=float(stats["mean_episode_length"]))
     finally:
@@ -715,10 +804,10 @@ def phase_mob_training(device="cuda", num_envs=None, iterations=3,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
-                    help="only phases 1-5, 8-9 and 12 (device, build and "
-                         "the kernel cases), with no result line: to time the "
-                         "kernels of another checkout, copy this file into "
-                         "it and run it there")
+                    help="only the device, the build and the kernel cases "
+                         "(phases 1-5, 8-9, 12 and 14), with no result line: "
+                         "to time the kernels of another checkout, copy this "
+                         "file into it and run it there")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -756,69 +845,116 @@ def main(argv=None) -> int:
 
     model = load_robot("go1", device=dev)
     go2 = load_robot("go2", device=dev)
+    # the new robots' specs, where the checkout has them (an older one,
+    # timed with --kernels, may not)
+    robots = {}
+    for key in ROBOT_PRESET:
+        try:
+            robots[key] = load_robot(key, device=dev)
+        except FileNotFoundError:
+            if not args.kernels:
+                raise
+    new_kernel_phases = [
+        (f"{kind}_{key}", fn, m) for key, m in robots.items()
+        for kind, fn in (("kernel_a", phase_kernel_a),
+                         ("kernel_b", phase_kernel_b))]
     results = {}
     if args.kernels:
-        for phase, fn, m in (("kernel_a", phase_kernel_a, model),
+        for phase, fn, m in [("kernel_a", phase_kernel_a, model),
                              ("kernel_b", phase_kernel_b, model),
                              ("ragged", phase_ragged, model),
                              ("kernel_a_go2", phase_kernel_a, go2),
                              ("kernel_b_ceiling", phase_kernel_b_ceiling, go2),
-                             ("kernel_b_edges", phase_kernel_b_edges, model)):
+                             ("kernel_b_edges", phase_kernel_b_edges, model)
+                             ] + new_kernel_phases:
             t0 = time.perf_counter()
             emit({"phase": phase, **fn(m, dev),
                   "seconds": time.perf_counter() - t0})
         print(smi_line, flush=True)
         return 0
-    for phase, fn in (("kernel_a", phase_kernel_a), ("kernel_b", phase_kernel_b),
-                      ("ragged", phase_ragged), ("rollout", phase_rollout)):
+
+    def run(phase, fn, *a, **kw):
         t0 = time.perf_counter()
-        results[phase] = fn(model, dev)
+        results[phase] = fn(*a, **kw)
         emit({"phase": phase, **results[phase],
               "seconds": time.perf_counter() - t0})
+        return results[phase]
 
-    t0 = time.perf_counter()
-    tr = phase_training()
-    emit({"phase": "training", **tr, "seconds": time.perf_counter() - t0})
+    for phase, fn in (("kernel_a", phase_kernel_a), ("kernel_b", phase_kernel_b),
+                      ("ragged", phase_ragged), ("rollout", phase_rollout)):
+        run(phase, fn, model, dev)
+    tr = run("training", phase_preset_training, "go1_flat", num_envs=B)
     _check_launches("go1_flat training", tr)
 
     for phase, fn in (("kernel_a_go2", phase_kernel_a),
                       ("kernel_b_ceiling", phase_kernel_b_ceiling),
                       ("parkour_rollout", phase_parkour_rollout)):
-        t0 = time.perf_counter()
-        results[phase] = fn(go2, dev)
-        emit({"phase": phase, **results[phase],
-              "seconds": time.perf_counter() - t0})
-
-    t0 = time.perf_counter()
-    pk = phase_parkour_training()
-    emit({"phase": "parkour_training", **pk,
-          "seconds": time.perf_counter() - t0})
+        run(phase, fn, go2, dev)
+    pk = run("parkour_training", phase_parkour_training)
     _check_launches("parkour training", pk)
+    if pk["dynamics_calls_with_ceiling"] != pk["launches"]["dynamics"]:
+        raise AssertionError("parkour training: kernel B ran without the "
+                             "ceiling")
 
-    t0 = time.perf_counter()
-    results["kernel_b_edges"] = phase_kernel_b_edges(model, dev)
-    emit({"phase": "kernel_b_edges", **results["kernel_b_edges"],
-          "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    mob = phase_mob_training()
-    emit({"phase": "mob_training", **mob,
-          "seconds": time.perf_counter() - t0})
+    run("kernel_b_edges", phase_kernel_b_edges, model, dev)
+    mob = run("mob_training", phase_preset_training, "go1_mob")
     _check_launches("go1_mob training", mob)
+
+    # the fifth slice: kernels A and B on B1 and the mini-cheetah, Go2
+    # Terrain (no ceiling), and the other presets of `train`
+    for phase, fn, m in new_kernel_phases:
+        run(phase, fn, m, dev)
+    for key, m in robots.items():
+        run(f"rollout_{key}", phase_robot_rollout, m, dev)
+    terrain = run("terrain_training", phase_parkour_training, task="terrain")
+    _check_launches("terrain training", terrain)
+    if terrain["dynamics_calls_with_ceiling"] or terrain["has_ceiling"]:
+        raise AssertionError("terrain training: kernel B was given a "
+                             "ceiling")
+    full = run("terrain_training_full_rewards", phase_parkour_training,
+               iterations=1, warmup=0, task="terrain", reward_mode="full")
+    _check_launches("terrain training with the full rewards", full)
+    presets = {}
+    for preset in ("go2_flat", "b1_flat", "mini_cheetah_flat", "go2_mob",
+                   "b1_mob"):
+        presets[preset] = run(
+            "presets_training", phase_preset_training, preset,
+            num_envs=(B if preset.endswith("_flat") else None),
+            iterations=1)
+        _check_launches(f"{preset} training", presets[preset])
 
     ka, kb, rg = results["kernel_a"], results["kernel_b"], results["ragged"]
     ka2, kc = results["kernel_a_go2"], results["kernel_b_ceiling"]
     ke = results["kernel_b_edges"]
-    worst_b = max(list(kb.values()) + [rg["kernel_b"], ke],
+    robot_a = {k: results[f"kernel_a_{k}"] for k in robots}
+    robot_b = {k: results[f"kernel_b_{k}"] for k in robots}
+    worst_b = max(list(kb.values()) + [rg["kernel_b"], ke]
+                  + [c for r in robot_b.values() for c in r.values()],
                   key=lambda r: r["max_abs_err"])
-    by_path = lambda name: {"go1_flat": tr["launches"][name],
-                            "parkour": pk["launches"][name],
-                            "go1_mob": mob["launches"][name]}
+    paths = {"go1_flat": tr, "parkour": pk, "go1_mob": mob,
+             "terrain": terrain, "terrain_full_rewards": full, **presets}
+    by_path = lambda name: {p: r["launches"][name] for p, r in paths.items()}
+    per_robot_a = {}
+    for k, r in robot_a.items():
+        per_robot_a.update({f"{k}_ms": r["device_ms"],
+                            f"{k}_call_ms": r["call_ms"],
+                            f"{k}_plain_ms": r["plain_ms"],
+                            f"{k}_bound_ms": r["bound_ms"]})
+    per_robot_b = {}
+    for k, r in robot_b.items():
+        for terr, c in r.items():
+            per_robot_b.update({f"{k}_{terr}_ms": c["device_ms"],
+                                f"{k}_{terr}_call_ms": c["call_ms"],
+                                f"{k}_{terr}_plain_ms": c["plain_ms"],
+                                f"{k}_{terr}_bound_ms": c["bound_ms"],
+                                f"{k}_{terr}_max_abs_err": c["max_abs_err"]})
     kernels = [
         dict(name=K.FK.name, route="cuda", source=K.FK.source,
-             replaces=K.FK.replaces, launches=mob["launches"][K.FK.name],
+             replaces=K.FK.replaces, launches=terrain["launches"][K.FK.name],
              launches_by_path=by_path(K.FK.name),
-             max_abs_err=max(ka["max_abs_err"], ka2["max_abs_err"],
-                             rg["kernel_a"]["max_abs_err"]),
+             max_abs_err=max([ka["max_abs_err"], ka2["max_abs_err"],
+                              rg["kernel_a"]["max_abs_err"]]
+                             + [r["max_abs_err"] for r in robot_a.values()]),
              tolerance=ka["tolerance"],
              ms=ka2["ms"], kernel_ms=ka2["ms"], device_ms=ka2["device_ms"],
              call_ms=ka2["call_ms"], plain_ms=ka2["plain_ms"],
@@ -826,10 +962,11 @@ def main(argv=None) -> int:
              go1_ms=ka["device_ms"], go1_call_ms=ka["call_ms"],
              go1_plain_ms=ka["plain_ms"],
              go1_bound_ms=ka["bound_ms"], ragged_4000_ms=rg["kernel_a"]["ms"],
+             **per_robot_a,
              launch_shape=shape[K.FK.name], library_ms=None),
         dict(name=K.DYNAMICS.name, route="cuda", source=K.DYNAMICS.source,
              replaces=K.DYNAMICS.replaces,
-             launches=mob["launches"][K.DYNAMICS.name],
+             launches=terrain["launches"][K.DYNAMICS.name],
              launches_by_path=by_path(K.DYNAMICS.name),
              max_abs_err=max(worst_b["max_abs_err"], kc["max_abs_err"],
                              kc["no_ceiling_max_abs_err"]),
@@ -854,7 +991,7 @@ def main(argv=None) -> int:
              ragged_4000_ms=rg["kernel_b"]["ms"],
              edges_ms=ke["ms"], edges_call_ms=ke["call_ms"],
              edges_plain_ms=ke["plain_ms"], edges_bound_ms=ke["bound_ms"],
-             edges_max_abs_err=ke["max_abs_err"],
+             edges_max_abs_err=ke["max_abs_err"], **per_robot_b,
              launch_shape=shape[K.DYNAMICS.name], library_ms=None),
     ]
     emit({"kernels": kernels})

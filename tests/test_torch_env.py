@@ -132,19 +132,32 @@ def test_episode_reset_on_timeout():
     assert int(info["num_resets"]) == 4
 
 
-@pytest.mark.parametrize("preset", ["go2_mob", "go2_flat"])
-def test_unported_configs_raise(preset, tmp_path):
-    """Presets without a ported slice raise. go2_mob's config needs what
-    LeggedEnv does not have yet (Go2's actuator net); go2_flat's robot spec
-    ships with the parkour slice, so LeggedEnv builds it, but the preset
-    has no parity test and the training entry point refuses it."""
-    from wtw_tpu_torch.train import build
-    cfg = tcfg.PRESETS[preset](num_envs=4)
-    if preset == "go2_mob":
-        with pytest.raises(NotImplementedError):
-            LeggedEnv(cfg, load_robot(cfg.asset.robot), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build(preset, 4, device="cpu", run_dir=str(tmp_path))
+@pytest.mark.parametrize("env", ["legged", "parkour"])
+def test_unported_configs_raise(env, tmp_path):
+    """Every preset and both tasks are ported; what stays unported is an
+    actuator net the port does not ship. A robot with no net of its own
+    (its model and config renamed to an invented robot) raises
+    NotImplementedError in `LeggedEnv` (go1_mob's actuator-net control)
+    and in `ParkourEnv` (`use_actuator_net`), where the JAX package would
+    fail to find the file."""
+    import dataclasses as dc
+    from wtw_tpu_torch.envs.parkour_env import ParkourCfg, ParkourEnv
+    from wtw_tpu_torch.terrain import ParkourTerrainCfg
+    name = "quadruped_x"
+    model = dc.replace(load_robot("go1" if env == "legged" else "go2"),
+                       name=name).to("cpu")
+    with pytest.raises(NotImplementedError, match=name):
+        if env == "legged":
+            cfg = tcfg.go1_mob_config(num_envs=4)
+            cfg = dc.replace(cfg, asset=dc.replace(cfg.asset, robot=name))
+            LeggedEnv(cfg, model, device="cpu")
+        else:
+            ParkourEnv(ParkourCfg(num_envs=2, robot=name,
+                                  use_actuator_net=True,
+                                  terrain=ParkourTerrainCfg(
+                                      num_levels=3, num_terrains=5,
+                                      border_size=4.0)),
+                       model, device="cpu")
 
 
 def test_cuda_default_without_card_raises():

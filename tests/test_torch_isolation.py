@@ -1,9 +1,11 @@
 """The port stands alone: no module of wtw_tpu_torch, and not chip_smoke.py,
 imports jax, flax, optax or the JAX package (the GPU machine has none of
 them). A subprocess blocks those names with a meta-path finder, imports
-every module of the port and chip_smoke, and runs chip_smoke's three
-training phases (go1_flat, Go2 parkour on a 3 x 5 course, and go1_mob on a
-3 x 3-cell map) on the CPU at 16 envs, 1 iteration and narrow widths.
+every module of the port and chip_smoke, and runs chip_smoke's training
+phases (go1_flat, Go2 parkour on a 3 x 5 course, go1_mob on a 3 x 3-cell
+map, Go2Terrain on a 3 x 3-cell map in both reward modes, and the presets
+go2_flat, b1_flat, mini_cheetah_flat, go2_mob and b1_mob, the last two on
+3 x 3 cells) on the CPU at 16 envs, 1 iteration and narrow widths.
 """
 import json
 import os
@@ -31,23 +33,31 @@ names = ["wtw_tpu_torch"] + [
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-rec = chip_smoke.phase_training(
-    "cpu", num_envs=16, iterations=1, warmup=0,
-    overrides=["ac.actor_hidden_dims=32,16", "ac.critic_hidden_dims=32,16",
-               "ac.adaptation_hidden_dims=16"])
+narrow = ["ac.actor_hidden_dims=32,16", "ac.critic_hidden_dims=32,16",
+          "ac.adaptation_hidden_dims=16", "ppo.num_steps_per_env=4"]
+small_map = ["terrain.num_rows=3", "terrain.num_cols=3"]
+train = lambda preset, extra=(): chip_smoke.phase_preset_training(
+    preset, "cpu", num_envs=16, iterations=1, warmup=0,
+    overrides=narrow + list(extra))
+rec = train("go1_flat")
 pk = chip_smoke.phase_parkour_training(
     "cpu", num_envs=16, iterations=1, warmup=0,
     overrides=["terrain.num_levels=3", "terrain.num_terrains=5",
                "terrain.border_size=4.0", "ppo.hidden=32,16"])
-mob = chip_smoke.phase_mob_training(
-    "cpu", num_envs=16, iterations=1, warmup=0,
-    overrides=["terrain.num_rows=3", "terrain.num_cols=3",
-               "ac.actor_hidden_dims=32,16", "ac.critic_hidden_dims=32,16",
-               "ac.adaptation_hidden_dims=16"])
+mob = train("go1_mob", small_map)
+terrain_small = ["rough_terrain.num_rows=3", "rough_terrain.num_cols=3",
+                 "rough_terrain.border_size=1.0", "ppo.hidden=32,16"]
+terrain = {mode: chip_smoke.phase_parkour_training(
+    "cpu", num_envs=16, iterations=1, warmup=0, overrides=terrain_small,
+    task="terrain", reward_mode=mode) for mode in ("cat", "full")}
+presets = {p: train(p, small_map if p.endswith("_mob") else ())
+           for p in ("go2_flat", "b1_flat", "mini_cheetah_flat", "go2_mob",
+                     "b1_mob")}
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": names, "leaked": leaked,
                   "losses": rec["losses"], "launches": rec["launches"],
-                  "parkour": pk, "mob": mob}))
+                  "parkour": pk, "mob": mob, "terrain": terrain,
+                  "presets": presets}))
 """
 
 
@@ -69,10 +79,32 @@ def test_port_imports_no_jax_and_trains_on_cpu():
                 "wtw_tpu_torch.envs.wrappers",
                 "wtw_tpu_torch.models.actuator_net"):
         assert mod in out["modules"]
-    pk, mob = out["parkour"], out["mob"]
-    for losses in (out["losses"], pk["losses"], mob["losses"]):
+    pk, mob, terrain = out["parkour"], out["mob"], out["terrain"]
+    presets = out["presets"]
+    for losses in [out["losses"], pk["losses"], mob["losses"]] + [
+            r["losses"] for r in list(terrain.values())
+            + list(presets.values())]:
         assert all(abs(v) < 1e6 for v in losses.values())
     assert pk["num_obs"] == 189 and not pk["ceiling_flat"]
+    # every kernel B call of the 24 x 4 substeps carries the ceiling
+    assert pk["dynamics_calls_with_ceiling"] == 96
+    for mode, rec in terrain.items():
+        assert (rec["task"], rec["reward_mode"]) == ("terrain", mode)
+        assert not rec["has_ceiling"] and rec["ceiling_flat"] is None
+        assert rec["dynamics_calls_with_ceiling"] == 0
+        assert rec["actuator_net"] and rec["gait_clock"]
+        assert rec["num_obs"] == 193 and rec["heightfield_shape"] == [170, 170]
+        assert rec["launches"] == {"fk": 0, "dynamics": 0}
+    robots = {"go2_flat": "go2_description", "b1_flat": "b1_description",
+              "mini_cheetah_flat": "mini_cheetah",
+              "go2_mob": "go2_description", "b1_mob": "b1_description"}
+    for preset, rec in presets.items():
+        assert rec["robot"] == robots[preset]
+        assert rec["heightfield_flat"] == preset.endswith("_flat")
+        assert rec["launches"] == {"fk": 0, "dynamics": 0}
+    assert presets["go2_mob"]["control_type"] == "actuator_net"
+    assert presets["b1_mob"]["control_type"] == "P"
+    assert presets["b1_mob"]["heightfield_shape"] == [150, 150]
     assert (mob["num_obs"], mob["num_obs_history"]) == (70, 2100)
     assert mob["control_type"] == "actuator_net"
     assert mob["heightfield_shape"] == [150, 150]

@@ -134,6 +134,43 @@ def test_kernel_b_with_ceiling_matches_plain():
                                    msg=k)
 
 
+@pytest.mark.parametrize("robot,z", [("b1", 0.49), ("mini_cheetah", 0.45)])
+def test_kernels_match_plain_on_b1_and_mini_cheetah(robot, z):
+    """B1 (31 spheres, 55.7 kg) and the mini-cheetah (52 spheres) over rough
+    ground, bases a little below the standing height of each robot's
+    default pose (0.52 m and 0.47 m), so most envs touch: kernel A at 1e-5
+    and kernel B at the bars above, each launch counted."""
+    dev = _device()
+    model = load_robot(robot, device=dev)
+    st, tau = _states(dev, 4)
+    st.base_pos[:, 2] += z - 0.30
+    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q], 1).T.contiguous()
+    n0 = (K.FK.launches, K.DYNAMICS.launches)
+    got_b, got_p = K.fk(model, fk_in)
+    ref_b, fk_p = K.fk_plain(model, fk_in)
+    torch.testing.assert_close(got_b, ref_b, rtol=0, atol=1e-5)
+    torch.testing.assert_close(got_p, fk_p, rtol=0, atol=1e-5)
+    hts = (0.06 * np.random.RandomState(3).randn(80, 80)).astype(np.float32)
+    hf = make_heightfield(hts, 0.25, [-10.0, -10.0], device=dev)
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    env = torch.cat([torch.linspace(0.3, 2.0, B, device=dev)[None],
+                     torch.zeros(8, B, device=dev)], 0).contiguous()
+    args = (model, EngineParams(), pack_state_rows(st, tau), ref_b, fk_p,
+            hc.contiguous(), duv.contiguous(), env, 4.0)
+    got, ref = K.dynamics(*args), K.dynamics_plain(*args)
+    assert (K.FK.launches - n0[0], K.DYNAMICS.launches - n0[1]) == (1, 1)
+    lay = K.dyn_out_layout(model.nj)
+    g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
+    assert float(r["total_normal_force"].max()) > 10.0
+    tol = {"base_lin_vel": 1e-4, "joint_qd": 1e-3, "base_ang_vel": 1e-3,
+           "foot_forces": 1e-1, "thigh_contact": 1e-1, "calf_contact": 1e-1,
+           "base_contact": 1e-1, "total_normal_force": 1e-1,
+           "foot_velocities": 1e-4}
+    for k in g:
+        torch.testing.assert_close(g[k], r[k], rtol=0, atol=tol.get(k, 1e-5),
+                                   msg=k)
+
+
 def _rough_case(dev, n, seed=1):
     """go1 over rough ground at n envs: kernel B's inputs."""
     model = load_robot("go1", device=dev)

@@ -201,10 +201,21 @@ def test_policy_export_drives_deploy_policy(tmp_path):
     np.testing.assert_allclose(deployed(oh), want, atol=1e-5)
 
 
-@pytest.mark.parametrize("preset", ["b1_mob", "b1_flat"])
-def test_train_cli_refuses_unported_presets(preset, tmp_path):
-    with pytest.raises(NotImplementedError):
-        build(preset, num_envs=4, device="cpu", run_dir=str(tmp_path))
+@pytest.mark.parametrize("cli", ["train", "train_parkour"])
+def test_train_cli_refuses_unported_presets(cli, tmp_path):
+    """Every preset trains now; what the training CLIs still refuse is a
+    JAX `.pkl` to `--resume` (ROADMAP 1.6): unpickling one needs
+    wtw_tpu, flax and optax. Both raise NotImplementedError before reading
+    the file."""
+    pkl = str(tmp_path / "state_last.pkl")
+    if cli == "train":
+        with pytest.raises(NotImplementedError, match="1.6"):
+            build("b1_flat", num_envs=4, device="cpu", run_dir=str(tmp_path),
+                  resume=pkl, overrides=["ppo.num_steps_per_env=2"])
+    else:
+        from wtw_tpu_torch.train_parkour import main as parkour_main
+        with pytest.raises(NotImplementedError, match="1.6"):
+            parkour_main(["--device", "cpu", "--resume", pkl])
 
 
 def test_train_cli_runs_one_iteration(tmp_path):

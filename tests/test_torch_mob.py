@@ -37,6 +37,7 @@ from wtw_tpu_torch import config as tcfg
 from wtw_tpu_torch.convert import actuator_params_from_jax, world_from_jax
 from wtw_tpu_torch.envs import gait as tgait
 from wtw_tpu_torch.envs import make_legged_env
+from wtw_tpu_torch.envs.parkour_env import rough_terrain_cfg
 from wtw_tpu_torch.envs.wrappers import (ActuatorModelArgs,
                                          ActuatorModelWrapper)
 from wtw_tpu_torch.models.actuator_net import (apply_actuator_net,
@@ -68,16 +69,28 @@ _MIXED = dict(terrain_proportions=(0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1, 0.1,
 
 
 @pytest.mark.parametrize("case", ["go1_mob", "mixed", "curriculum",
-                                  "eval_rows"])
+                                  "eval_rows", "terrain_task"])
 def test_build_terrain_and_origins_are_bit_identical(case):
     """Heights, origins, cell origins and the per-env (level, type)
     assignment for one seed: exact. Cases: go1_mob's terrain on 3 x 3
     cells; every sub-terrain kind drawn at random, with a border; the
     curriculum layout (difficulty by row, type by column) with origins over
-    the initial levels; go1_mob with the eval rows of a second config."""
+    the initial levels; go1_mob with the eval rows of a second config; the
+    map of `train_parkour --task terrain` at its defaults (the port's
+    `rough_terrain_cfg()`, equal to the config of wtw_tpu/envs/
+    parkour_env.py:301-305: 10 x 20 cells of 5 m with an 8 m border, a
+    660 x 1160 field, robots at the cell starts on level 0)."""
     base = jcfg.go1_mob_config().terrain
     kw, eval_kw, seed = dict(SMALL), None, 5
-    if case == "mixed":
+    if case == "terrain_task":
+        base = jcfg.TerrainCfg(
+            curriculum=True, num_rows=10, num_cols=20, border_size=8.0,
+            center_robots=False, max_init_terrain_level=0,
+            terrain_proportions=(0.2, 0.2, 0.2, 0.2, 0.2, 0, 0, 0, 0))
+        assert dataclasses.asdict(rough_terrain_cfg()) \
+            == dataclasses.asdict(base)
+        kw = {}
+    elif case == "mixed":
         kw = dict(_MIXED)
     elif case == "curriculum":
         kw = dict(_MIXED, curriculum=True, center_robots=False,
@@ -86,7 +99,8 @@ def test_build_terrain_and_origins_are_bit_identical(case):
         eval_kw = dict(_MIXED, num_rows=2, num_cols=3, terrain_length=5.0,
                        terrain_width=5.0, border_size=0.0)
     jc = dataclasses.replace(base, **kw)
-    tc = dataclasses.replace(tcfg.go1_mob_config().terrain, **kw)
+    tc = (rough_terrain_cfg() if case == "terrain_task" else
+          dataclasses.replace(tcfg.go1_mob_config().terrain, **kw))
     je = (dataclasses.replace(base, **eval_kw) if eval_kw else None)
     te = (dataclasses.replace(tcfg.go1_mob_config().terrain, **eval_kw)
           if eval_kw else None)
@@ -102,6 +116,8 @@ def test_build_terrain_and_origins_are_bit_identical(case):
     for a, b in zip(assign_env_origins(tm, 37, tc, seed=seed),
                     jax_assign_origins(jm, 37, jc, seed=seed)):
         np.testing.assert_array_equal(a, b)
+    if case == "terrain_task":
+        assert tm.heights.shape == (660, 1160)
     np.testing.assert_array_equal(to_heightfield(tm).corners.numpy(),
                                   np.asarray(jax_to_hf(jm).corners))
 

@@ -201,11 +201,13 @@ def envs():
 
 
 def test_parkour_env_rejects_unported_options():
-    for kw in ({"task": "terrain"}, {"reward_mode": "full"},
-               {"use_actuator_net": True}, {"observe_imu": True}):
-        with pytest.raises(NotImplementedError):
-            ParkourEnv(ParkourCfg(num_envs=2, terrain=ParkourTerrainCfg(
-                **SMALL), **kw), load_robot("go2"), device="cpu")
+    """The terrain task and every env option are ported; `train_parkour`
+    still refuses the learners of ROADMAP 1.5, `--algo ppo_plus` and
+    `--algo ppornn`, before it builds anything."""
+    from wtw_tpu_torch.train_parkour import main as parkour_main
+    for algo in ("ppo_plus", "ppornn"):
+        with pytest.raises(NotImplementedError, match="1.5"):
+            parkour_main(["--device", "cpu", "--algo", algo])
 
 
 def test_parkour_env_steps_match_jax(envs):

@@ -77,7 +77,9 @@ def random_state(rng, B, z=0.35):
 
 
 @pytest.mark.parametrize("name,dims", [("go1", (13, 12, 18, 39)),
-                                       ("go2", (13, 12, 18, 51))])
+                                       ("go2", (13, 12, 18, 51)),
+                                       ("b1", (13, 12, 18, 31)),
+                                       ("mini_cheetah", (13, 12, 18, 52))])
 def test_load_robot_arrays_match_exactly(name, dims):
     jm, tm = jax_load_robot(name), load_robot(name)
     assert (tm.nb, tm.nj, tm.nv, tm.P) == dims
@@ -387,7 +389,7 @@ def test_model_struct_rejects_oversized_robot():
         K.model_struct(too_many, EngineParams())
 
 
-@pytest.mark.parametrize("robot", ["go1", "go2"])
+@pytest.mark.parametrize("robot", ["go1", "go2", "b1", "mini_cheetah"])
 def test_model_struct_level_order_is_topological(robot):
     """The kernels walk the tree level by level: every body's parent lies in
     the level before its own, each level lists each of its parents'
@@ -408,7 +410,7 @@ def test_model_struct_level_order_is_topological(robot):
         kids = order[m.child_off[b]:m.child_off[b] + m.n_child[b]]
         assert sorted(kids) == [c for c in range(1, model.nb)
                                 if parent[c] == b], b
-    # go1 and go2: the base, then 4 hips, 4 thighs, 4 calves
+    # every robot: the base, then 4 hips, 4 thighs, 4 calves
     assert [len(lv) for lv in levels] == [1, 4, 4, 4]
     anc = model.static["anc"]
     for b in range(model.nb):
@@ -472,11 +474,18 @@ def lane_order(request, host_kernels):
     host_kernels.wtw_set_lane_order(0)
 
 
-def _host_inputs(B=64):
+# base height of the host-build cases: a little below each robot's standing
+# height at its preset's default pose (the lowest sphere's bottom 0.32 m
+# below the base for go1, 0.52 m for b1, 0.47 m for the mini-cheetah), so
+# some spheres of most envs are in the ground
+HOST_Z = {"go1": 0.30, "b1": 0.49, "mini_cheetah": 0.45}
+
+
+def _host_inputs(B=64, robot="go1"):
     rng = np.random.RandomState(1)
-    model, params = load_robot("go1"), EngineParams()
+    model, params = load_robot(robot), EngineParams()
     st = PhysicsState(**{k: torch.from_numpy(v) for k, v in
-                         random_state(rng, B, z=0.30).items()})
+                         random_state(rng, B, z=HOST_Z[robot]).items()})
     tau = torch.from_numpy((3.0 * rng.randn(B, 12)).astype(np.float32))
     fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q], 1).T.contiguous()
     raw = bytearray(bytes(K.model_struct(model, params)))
@@ -484,12 +493,14 @@ def _host_inputs(B=64):
     return model, params, st, tau, fk_in, raw, mbuf
 
 
-@pytest.mark.parametrize("B", [64, 61])
-def test_kernel_a_source_matches_plain(host_kernels, lane_order, B):
+@pytest.mark.parametrize("robot,B", [("go1", 64), ("go1", 61), ("b1", 64),
+                                     ("mini_cheetah", 64)],
+                         ids=["64", "61", "b1-64", "mini_cheetah-64"])
+def test_kernel_a_source_matches_plain(host_kernels, lane_order, robot, B):
     """csrc/fk.cu built for the host vs fk_plain: atol 1e-5 (the FK bar),
-    lanes in both orders, and a ragged B (61: not a multiple of the 8
-    envs of a block)."""
-    model, params, st, tau, fk_in, raw, mbuf = _host_inputs(B)
+    lanes in both orders, a ragged B (61: not a multiple of the 8 envs of
+    a block), and the B1 (31 spheres) and mini-cheetah (52) models."""
+    model, params, st, tau, fk_in, raw, mbuf = _host_inputs(B, robot)
     ref_b, ref_p = K.fk_plain(model, fk_in)
     got_b, got_p = torch.empty_like(ref_b), torch.empty_like(ref_p)
     host_kernels.wtw_fk_host(ctypes.addressof(mbuf), fk_in.data_ptr(),
@@ -499,14 +510,22 @@ def test_kernel_a_source_matches_plain(host_kernels, lane_order, B):
     np.testing.assert_allclose(got_p.numpy(), ref_p.numpy(), atol=1e-5)
 
 
-@pytest.mark.parametrize("terrain,B", [("flat", 64), ("rough", 64),
-                                       ("rough", 61)])
-def test_kernel_b_source_matches_plain(host_kernels, lane_order, terrain, B):
+@pytest.mark.parametrize(
+    "robot,terrain,B",
+    [("go1", "flat", 64), ("go1", "rough", 64), ("go1", "rough", 61),
+     ("b1", "flat", 64), ("b1", "rough", 64), ("mini_cheetah", "flat", 64),
+     ("mini_cheetah", "rough", 64)],
+    ids=["flat-64", "rough-64", "rough-61", "b1-flat-64", "b1-rough-64",
+         "mini_cheetah-flat-64", "mini_cheetah-rough-64"])
+def test_kernel_b_source_matches_plain(host_kernels, lane_order, robot,
+                                       terrain, B):
     """csrc/dynamics.cu built for the host vs dynamics_plain at the bars of
     tests/test_physics_batched.py:157-159 (lin vel 1e-4, joint qd 1e-3,
-    foot forces 1e-1), positions at 1e-5; lanes in both orders, and a
-    ragged B (61: not a multiple of the 8 envs of a block)."""
-    model, params, st, tau, fk_in, raw, mbuf = _host_inputs(B)
+    foot forces 1e-1), positions at 1e-5; lanes in both orders, a ragged B
+    (61: not a multiple of the 8 envs of a block), and the B1 (55.7 kg, 31
+    spheres) and mini-cheetah (52 spheres) models on flat and rough
+    ground."""
+    model, params, st, tau, fk_in, raw, mbuf = _host_inputs(B, robot)
     B = fk_in.shape[1]
     fk_b, fk_p = K.fk_plain(model, fk_in)
     if terrain == "flat":

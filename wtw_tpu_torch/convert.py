@@ -106,10 +106,11 @@ def cat_params_from_jax(tree) -> Dict[str, torch.Tensor]:
 
 
 def parkour_world_from_jax(world, device="cpu", seed: int = 0) -> ParkourWorld:
-    """JAX `ParkourWorld` (numpy leaves) -> the port's ParkourWorld: env
-    state, CaT running maxima, soft-p progress, observation history and the
-    step counter. Fields the port's parkour path does not carry (gait
-    clock, actuator-net history, per-env RNG keys) are dropped; the port's
+    """JAX `ParkourWorld` (numpy leaves) -> the port's ParkourWorld: every
+    env field (the gait clock, the actuator-net history, the previous
+    actions, joint velocities and base velocity included), the CaT running
+    maxima, the float32 soft-p progress, the observation history and the
+    step counter. The JAX per-env RNG keys have no counterpart; the port's
     generator is seeded with `seed`."""
     dev = torch.device(device)
     e = world.env
@@ -122,7 +123,7 @@ def parkour_world_from_jax(world, device="cpu", seed: int = 0) -> ParkourWorld:
     return ParkourWorld(
         env=ParkourEnvState(phys=_phys(e.phys, dev), **fields),
         cat=CaTState(running_max=_tensor(world.cat.running_max, dev)),
-        soft_p_progress=float(np.asarray(world.soft_p_progress)),
+        soft_p_progress=np.float32(np.asarray(world.soft_p_progress)),
         hist_obs=_tensor(world.hist_obs, dev),
         common_step=int(np.asarray(world.common_step)),
         gen=_generator(dev, seed))

@@ -1,19 +1,26 @@
-"""Parkour environment with Constraints-as-Terminations (Stack B; port of
-`wtw_tpu/envs/parkour_env.py`, batched backend, `task="parkour"` with
-`reward_mode="cat"`).
+"""Parkour and rough-terrain environment with Constraints-as-Terminations
+(Stack B; port of `wtw_tpu/envs/parkour_env.py`, batched backend).
 
 Same semantics as the JAX env's batched path (reference
-tasks/go2_parkour.py:21-1697):
+tasks/go2_parkour.py:21-1697, and tasks/go2_terrain.py for
+`task="terrain"`):
 
-- PD torques with the torque clip and stiction/viscous motor friction,
-  inside a loop of `decimation` physics substeps that reuses the corner
-  rows gathered at the policy-step start (`hf_substep_cache`);
-- the ground AND the ceiling heightfield in every substep: crawl tracks
-  put overhead barriers over 20% of the mixed course;
-- the divergence guard, pushes, ceiling tracking and the move-up flag,
-  contact bookkeeping, hard terminations and the full CaT battery
-  (a probabilistic done per env for the learner's GAE and a hard reset);
-- the velocity-tracking reward, the only reward under CaT;
+- PD torques, or the learned actuator net, with the torque clip and
+  stiction/viscous motor friction, inside a loop of `decimation` physics
+  substeps that reuses the corner rows gathered at the policy-step start
+  (`hf_substep_cache`);
+- `task="parkour"`: the ground AND the ceiling heightfield in every
+  substep (crawl tracks put overhead barriers over 20% of the mixed
+  course); `task="terrain"`: the Stack-A slope/stair/obstacle grid, with
+  no ceiling, so kernel B runs its ground-only path;
+- the divergence guard, pushes, the fixed-trot gait clock, ceiling
+  tracking and the move-up flag, contact bookkeeping, hard terminations
+  and the full CaT battery (a probabilistic done per env for the learner's
+  GAE and a hard reset);
+- the velocity-tracking reward (`reward_mode="cat"`) or the full
+  rough-terrain battery with the raibert term (`reward_mode="full"`);
+- the optional pre-reset observation (`provide_true_next_obs`), the imu
+  and clock observations;
 - episode metrics, per-track-type crossings, the masked reset with the
   terrain curriculum, stochastic command updates, and the post-reset
   observation with its history refresh.
@@ -22,28 +29,27 @@ Randomness comes from one `torch.Generator` per world (`ParkourWorld.gen`,
 on the env's device), seeded by `init_state(seed)`. JAX's per-env key
 streams cannot be reproduced in torch, so the two envs agree only where no
 draw is made (tests switch the draws off).
-
-Not ported (the constructor raises and names the ROADMAP item): the rough
-terrain task (`task="terrain"`: gait clock, actuator net, full reward
-battery, true next observations) and the imu and clock observations. The
-per-env state fields that only those read are left out.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..config import TerrainCfg
+from ..models.actuator_net import apply_actuator_net, load_actuator_net
 from ..models.robot import RobotModel, default_joint_angles
 from ..physics import EngineParams, PhysicsState, physics_step_batched
 from ..physics.heightfield import height_min3
-from ..terrain import (ParkourTerrainCfg, assign_parkour_origins,
-                       build_parkour, ceiling_heightfield, to_heightfield)
+from ..terrain import (ParkourTerrainCfg, assign_env_origins,
+                       assign_parkour_origins, build_parkour, build_terrain,
+                       ceiling_heightfield, to_heightfield)
 from ..utils import quat as quat_util
+from . import gait
 from .constraints import CaTManager, CaTState, sqrt_func
 
 GO2_DEFAULT_JOINT_ANGLES = (
@@ -71,19 +77,62 @@ class ParkourLimits:
 
 
 @dataclass(frozen=True)
+class TerrainRewardScales:
+    """Full reward battery for the rough-terrain task when CaT is off
+    (tasks/go2_terrain.py:43-74 / compute_reward :1024-1090). Values from
+    cfg/task/Go2Terrain.yaml."""
+    termination: float = 0.0
+    lin_vel_xy: float = 1.0
+    ang_vel_z: float = 0.5
+    lin_vel_z: float = -4.0
+    ang_vel_xy: float = -0.05
+    orient: float = -1.0
+    base_height: float = 0.0
+    torque: float = -0.00002
+    joint_acc: float = -0.0005
+    air_time: float = 1.0
+    collision: float = -0.25
+    stumble: float = -2.0
+    action_rate: float = -0.01
+    dof_pos: float = -0.1
+    dof_vel_limit: float = -0.1
+    hip: float = -0.1
+    raibert: float = -10.0
+    foot2contact: float = 0.0
+    stand_still: float = 0.0
+
+
+def rough_terrain_cfg() -> TerrainCfg:
+    """The terrain task's map when `ParkourCfg.rough_terrain` is None
+    (wtw_tpu/envs/parkour_env.py:301-305): 10 levels x 20 columns of 5 m
+    cells at 0.1 m with an 8 m border, robots at the cell starts, all on
+    level 0 at first, five kinds of ground at 0.2 each."""
+    return TerrainCfg(
+        curriculum=True, num_rows=10, num_cols=20, border_size=8.0,
+        center_robots=False, max_init_terrain_level=0,
+        terrain_proportions=(0.2, 0.2, 0.2, 0.2, 0.2, 0, 0, 0, 0))
+
+
+@dataclass(frozen=True)
 class ParkourCfg:
-    # cfg/task/Go2Parkour.yaml (the JAX ParkourCfg's fields, without the
-    # rough-terrain task's reward scales and terrain config and the two
-    # fields nothing reads, survival_bonus and imu_scale)
+    # cfg/task/Go2Parkour.yaml; with task='terrain' this becomes the
+    # Go2Terrain rough-terrain task (tasks/go2_terrain.py + Go2Terrain.yaml).
+    # The JAX ParkourCfg's fields, without survival_bonus, which nothing
+    # reads.
     robot: str = "go2"
-    task: str = "parkour"            # 'terrain' is not ported yet
+    task: str = "parkour"            # 'parkour' | 'terrain'
     num_envs: int = 4096
     num_actions: int = 12
-    use_gait_clocks: bool = False
+    # terrain-task extras (tasks/go2_terrain.py)
+    use_gait_clocks: bool = False    # fixed 3 Hz trot clock (:582-611)
     observe_clock_inputs: bool = False
-    use_actuator_net: bool = False
-    reward_mode: str = "cat"
-    provide_true_next_obs: bool = False
+    use_actuator_net: bool = False   # unitree_go2 net (:177-203)
+    reward_mode: str = "cat"         # 'cat' | 'full'
+    provide_true_next_obs: bool = False  # go2_terrain.py:734 (off-policy)
+    terrain_rewards: TerrainRewardScales = dataclasses.field(
+        default_factory=TerrainRewardScales)
+    # the terrain task's map; None: rough_terrain_cfg()
+    rough_terrain: Optional[TerrainCfg] = None
     num_history_samples: int = 1      # numHistorySamples
     num_history_step: int = 1         # numHistoryStep (0 in yaml == 1 in effect)
     episode_length_s: float = 25.0
@@ -141,6 +190,7 @@ class ParkourCfg:
     dof_pos_scale: float = 1.0
     dof_vel_scale: float = 0.05
     height_meas_scale: float = 5.0
+    imu_scale: float = 0.1
     # noise
     add_noise: bool = True
     noise_level: float = 1.0
@@ -186,7 +236,19 @@ class ParkourEnvState:
     commands: torch.Tensor           # (N, 3) world-frame vx, vy, wz
     actions: torch.Tensor
     last_actions: torch.Tensor
+    last_last_actions: torch.Tensor  # terrain action_rate 2nd diff (:1058)
+    last_joint_qd: torch.Tensor      # joint_acc reward (:1047)
+    last_base_lin_vel: torch.Tensor  # (N, 3) world; imu accel obs (:864-868)
     torques: torch.Tensor
+    # gait clock (terrain task, go2_terrain.py:582-611)
+    gait_index: torch.Tensor         # (N,)
+    clock_inputs: torch.Tensor       # (N, 4)
+    foot_indices: torch.Tensor       # (N, 4)
+    # actuator-net joint-state history (go2_terrain.py:1480-1490)
+    joint_pos_err_last: torch.Tensor
+    joint_pos_err_last_last: torch.Tensor
+    joint_vel_last: torch.Tensor
+    joint_vel_last_last: torch.Tensor
     # per-episode DR draws
     friction: torch.Tensor
     motor_Fs: torch.Tensor           # (N, nj) stiction torque
@@ -209,7 +271,7 @@ class ParkourEnvState:
 class ParkourWorld:
     env: ParkourEnvState
     cat: CaTState
-    soft_p_progress: float           # in [0, 1]
+    soft_p_progress: np.float32      # in [0, 1], summed in float32 as in JAX
     hist_obs: torch.Tensor           # (N, hist_len * sample_obs)
     common_step: int
     gen: torch.Generator
@@ -243,18 +305,25 @@ def _where(mask: torch.Tensor, a, b):
     return torch.where(mask.reshape(mask.shape + (1,) * (b.dim() - 1)), a, b)
 
 
-def _unported(cfg: ParkourCfg):
-    out = []
-    if cfg.task != "parkour":
-        out.append(f"task={cfg.task!r} (ROADMAP 1: --task terrain)")
-    if cfg.reward_mode != "cat":
-        out.append(f"reward_mode={cfg.reward_mode!r} (ROADMAP 1: "
-                   "--task terrain)")
-    for flag in ("use_actuator_net", "use_gait_clocks", "observe_clock_inputs",
-                 "provide_true_next_obs", "observe_imu"):
-        if getattr(cfg, flag):
-            out.append(f"{flag} (ROADMAP 1: --task terrain)")
-    return out
+def soft_p_step(progress: np.float32, cfg: ParkourCfg):
+    """One step of the soft-p curriculum (go2_parkour.py:966-974): ->
+    (progress', soft_p), both float32. The progress is carried and summed
+    in float32 exactly as the JAX env sums it (a float32 scalar plus the
+    weakly typed 1 / soft_p_total_steps, rounded to float32 first), so the
+    schedule reaches 1.0 at the same step on both sides."""
+    f32 = np.float32
+    progress = np.clip(f32(progress) + f32(1.0 / cfg.soft_p_total_steps),
+                       f32(0.0), f32(1.0)).astype(f32)
+    if cfg.use_soft_p_curriculum:
+        # 1 / (T_start + progress (T_end - T_start)) with T_start 25 and
+        # T_end 1 / soft_p, their difference rounded to float32. The jitted
+        # JAX step fuses the multiply-add (one rounding): the product and
+        # sum are exact in float64, so one rounding to float32 matches it
+        slope = float(f32(1.0 / cfg.soft_p - 25.0))
+        soft_p = f32(1.0) / f32(25.0 + float(progress) * slope)
+    else:
+        soft_p = f32(cfg.soft_p)
+    return progress, f32(soft_p)
 
 
 class ParkourEnv:
@@ -263,11 +332,11 @@ class ParkourEnv:
 
     def __init__(self, cfg: ParkourCfg, model: RobotModel, seed: int = 0,
                  device=None):
-        unported = _unported(cfg)
-        if unported:
-            raise NotImplementedError(
-                "wtw_tpu_torch.ParkourEnv runs the parkour task with CaT; "
-                "not yet ported: " + ", ".join(unported))
+        if cfg.task not in ("parkour", "terrain"):
+            raise ValueError(f"task {cfg.task!r}: 'parkour' or 'terrain'")
+        if cfg.reward_mode not in ("cat", "full"):
+            raise ValueError(f"reward_mode {cfg.reward_mode!r}: 'cat' or "
+                             f"'full'")
         self.device = resolve_device(device)
         dev = self.device
         self.cfg = cfg
@@ -278,16 +347,30 @@ class ParkourEnv:
         self.dt = cfg.policy_dt
         self.max_episode_length = cfg.max_episode_length
 
-        tm = build_parkour(cfg.terrain, seed=seed)
-        self.hf = to_heightfield(tm, device=dev)
-        self.hf_ceiling = ceiling_heightfield(tm, device=dev)
-        origins, levels, types = assign_parkour_origins(
-            tm, cfg.num_envs, cfg.terrain, seed=seed)
         f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
-        self.terrain_ceilings = f32(tm.ceilings)             # (lvl, type)
+        if cfg.task == "terrain":
+            # rough-terrain task: the Stack-A slope/stair/obstacle grid
+            # (tasks/terrain.py), no ceilings, no lava
+            tcfg = cfg.rough_terrain or rough_terrain_cfg()
+            tm = build_terrain(tcfg, seed=seed)
+            origins, levels, types = assign_env_origins(
+                tm, cfg.num_envs, tcfg, seed=seed)
+            self.hf_ceiling = None
+            self.terrain_ceilings = torch.full(
+                (tm.num_rows, tm.num_cols), cfg.terrain.default_ceiling,
+                device=dev)
+            self.track_length = tcfg.terrain_length
+            self.num_terrain_levels = tm.num_rows
+        else:
+            tm = build_parkour(cfg.terrain, seed=seed)
+            self.hf_ceiling = ceiling_heightfield(tm, device=dev)
+            origins, levels, types = assign_parkour_origins(
+                tm, cfg.num_envs, cfg.terrain, seed=seed)
+            self.terrain_ceilings = f32(tm.ceilings)         # (lvl, type)
+            self.track_length = cfg.terrain.map_length
+            self.num_terrain_levels = cfg.terrain.num_levels
+        self.hf = to_heightfield(tm, device=dev)
         self.terrain_origins = f32(tm.env_origins)           # (lvl, type, 3)
-        self.track_length = cfg.terrain.map_length
-        self.num_terrain_levels = cfg.terrain.num_levels
         self.init_origins = f32(origins)
         self.init_levels = torch.as_tensor(levels, dtype=torch.long,
                                            device=dev)
@@ -310,6 +393,23 @@ class ParkourEnv:
         self.height_points = f32(
             np.stack([gx.ravel(), gy.ravel(), np.zeros(gx.size)], -1))
         self.num_height_points = gx.size
+
+        # optional learned actuator model (go2_terrain.py:177-203): the JAX
+        # package's converted weights, of which the port ships copies
+        self.actuator_params = None
+        if cfg.use_actuator_net:
+            try:
+                self.actuator_params = load_actuator_net(
+                    f"actuator_{cfg.robot}", device=dev)
+            except FileNotFoundError:
+                raise NotImplementedError(
+                    f"no actuator net for robot {cfg.robot!r} in the "
+                    f"port") from None
+        # the terrain task's fixed 3 Hz trot (go2_terrain.py:582-611) as
+        # step_gait commands: frequency 3, phase 0.5, duration 0.5
+        self.trot_command = torch.tensor(
+            [0, 0, 0, 0, 3.0, 0.5, 0.0, 0.0, 0.5, 0, 0, 0, 0, 0, 0],
+            dtype=torch.float32, device=dev)
 
         self.cstr = CaTManager(_constraint_decls(model.nj), tau=cfg.cat_tau,
                                min_p=cfg.cat_min_p, device=dev)
@@ -345,6 +445,10 @@ class ParkourEnv:
             n += 1
         if cfg.observe_phases:
             n += 8
+        if cfg.observe_imu:
+            n += 3
+        if cfg.observe_clock_inputs:
+            n += 4
         return n
 
     def _noise_vec(self) -> np.ndarray:
@@ -371,6 +475,10 @@ class ParkourEnv:
             parts.append(np.zeros(1))
         if cfg.observe_phases:
             parts.append(np.zeros(8))
+        if cfg.observe_imu:
+            parts.append(np.zeros(3))
+        if cfg.observe_clock_inputs:
+            parts.append(np.zeros(4))
         return np.concatenate(parts).astype(np.float32) * cfg.noise_level
 
     def _uniform(self, gen, shape, lo, hi):
@@ -391,7 +499,13 @@ class ParkourEnv:
             phys=self._reset_phys(gen, self.init_origins),
             progress=torch.zeros(N, dtype=torch.int32, device=dev),
             commands=self._sample_commands(gen, N),
-            actions=zero_j, last_actions=zero_j, torques=zero_j,
+            actions=zero_j, last_actions=zero_j, last_last_actions=zero_j,
+            last_joint_qd=zero_j,
+            last_base_lin_vel=torch.zeros(N, 3, device=dev), torques=zero_j,
+            gait_index=torch.zeros(N, device=dev), clock_inputs=zero4,
+            foot_indices=zero4, joint_pos_err_last=zero_j,
+            joint_pos_err_last_last=zero_j, joint_vel_last=zero_j,
+            joint_vel_last_last=zero_j,
             **self._sample_dr(gen, N),
             feet_swing_time=zero4, feet_swing_apex=zero4,
             feet_clearance=zero4,
@@ -402,7 +516,8 @@ class ParkourEnv:
             episode_sums=torch.zeros(N, self.n_metrics, device=dev),
             timed_out=torch.zeros(N, dtype=torch.bool, device=dev))
         return ParkourWorld(
-            env=env, cat=self.cstr.init_state(), soft_p_progress=0.0,
+            env=env, cat=self.cstr.init_state(),
+            soft_p_progress=np.float32(0.0),
             hist_obs=torch.zeros(N, self.hist_len * self.sample_obs_size,
                                  device=dev),
             common_step=0, gen=gen)
@@ -480,21 +595,39 @@ class ParkourEnv:
         cell = self.terrain_ceilings[env.terrain_level, env.terrain_type]
         return crawl * cell + (1.0 - crawl) * 0.4
 
-    def _compute_tau(self, s: ParkourEnvState, actions):
+    def _compute_tau(self, s: ParkourEnvState, actions, hist=None):
+        """PD or the actuator net, the clip, then motor friction
+        (:1218-1265) -> tau. With the actuator net, the history fields to
+        carry into the next substep go into the dict `hist`."""
         cfg = self.cfg
         q, qd = s.phys.joint_q, s.phys.joint_qd
         target = cfg.action_scale * actions + self.default_joint_q
-        tau = cfg.stiffness * (target - q) - cfg.damping * qd
+        if self.actuator_params is not None:
+            pos_err = q - target
+            tau = apply_actuator_net(
+                self.actuator_params, pos_err, s.joint_pos_err_last,
+                s.joint_pos_err_last_last, qd, s.joint_vel_last,
+                s.joint_vel_last_last)
+            if hist is not None:
+                hist.update(joint_pos_err_last=pos_err,
+                            joint_pos_err_last_last=s.joint_pos_err_last,
+                            joint_vel_last=qd,
+                            joint_vel_last_last=s.joint_vel_last)
+        else:
+            tau = cfg.stiffness * (target - q) - cfg.damping * qd
         tau = torch.clamp(tau, -cfg.torque_clip, cfg.torque_clip)
         # stiction + viscous motor friction (:1242-1245)
         return tau - (s.motor_Fs * torch.tanh(qd / 0.1) + s.motor_mu_v * qd)
 
     def _substep(self, s: ParkourEnvState, actions, **cache_kw):
-        tau = self._compute_tau(s, actions)
+        hist = {}
+        tau = self._compute_tau(s, actions, hist)
+        # hf_ceiling is None on the terrain task: kernel B's ground-only path
         res = physics_step_batched(
             self.model, self.hf, self.engine_params, s.phys, tau, s.friction,
             0.0, hf_ceiling=self.hf_ceiling, **cache_kw)
-        return dataclasses.replace(s, phys=res[0], torques=tau), res[1:]
+        return dataclasses.replace(s, phys=res[0], torques=tau, **hist), \
+            res[1:]
 
     # ------------------------------------------------------------------
     def step(self, world: ParkourWorld, actions: torch.Tensor):
@@ -545,6 +678,14 @@ class ParkourEnv:
                 phys, base_lin_vel=phys.base_lin_vel + dv[:, :3] * do_push,
                 base_ang_vel=phys.base_ang_vel + dv[:, 3:] * do_push)
             env = dataclasses.replace(env, phys=phys)
+
+        # ---- fixed-trot gait clock (terrain task, go2_terrain.py:582-611)
+        if cfg.use_gait_clocks:
+            g_idx, f_idx, clock, _, _, _ = gait.step_gait(
+                env.gait_index, self.trot_command.expand(N, -1), self.dt,
+                0.07)
+            env = dataclasses.replace(env, gait_index=g_idx,
+                                      foot_indices=f_idx, clock_inputs=clock)
 
         # ---- heights / ceilings / flat-terrain flags (:1308-1322) ----
         measured_heights = self._measured_heights(phys.base_pos,
@@ -604,14 +745,7 @@ class ParkourEnv:
         flat_style = calm.float()
         n_contacts = contacts_filt.float().sum(dim=1)
 
-        # soft_p curriculum (:966-974)
-        soft_p_progress = min(max(world.soft_p_progress
-                                  + 1.0 / cfg.soft_p_total_steps, 0.0), 1.0)
-        if cfg.use_soft_p_curriculum:
-            T_start, T_end = 25.0, 1.0 / cfg.soft_p
-            soft_p = 1.0 / (T_start + soft_p_progress * (T_end - T_start))
-        else:
-            soft_p = cfg.soft_p
+        soft_p_progress, soft_p = soft_p_step(world.soft_p_progress, cfg)
 
         constraints = {
             "heading": sqrt_func(cstr_heading),
@@ -647,7 +781,7 @@ class ParkourEnv:
         max_ps = {n: soft_p for n in self.cstr_names}
         for n in _HARD_P:
             max_ps[n] = 1.0
-        max_ps["stumble"] = 0.1 + soft_p
+        max_ps["stumble"] = np.float32(0.1) + soft_p
 
         # a diverged env contributes nothing to the constraint stream: its
         # values would poison the Polyak running maxes for good
@@ -664,7 +798,7 @@ class ParkourEnv:
         hard_done = (timed_out | (cstr_upsidedown > 0) | (cstr_lava > 0)
                      | term_contacts | hard_base_height | diverged)
 
-        # ---- reward: CaT tracks velocity only (:841-845) ----
+        # ---- reward ----
         robot_cmd = self._robot_command(phys.base_quat, cmd)
         lin_err = ((robot_cmd[:, :2] - base_lin_vel[:, :2]) ** 2).sum(dim=1)
         ang_err = (cmd[:, 2] - base_ang_vel[:, 2]) ** 2
@@ -672,7 +806,17 @@ class ParkourEnv:
         rew_ang = torch.exp(-ang_err / cfg.ang_vel_delta) * cfg.ang_vel_z_scale
         rew_lin = _where(diverged, 0.0, rew_lin)
         rew_ang = _where(diverged, 0.0, rew_ang)
-        rew = torch.clamp(rew_lin, min=0.0)
+        if cfg.reward_mode == "full":
+            # the full battery of the rough-terrain task without CaT
+            # (go2_terrain.py compute_reward :1024-1090); its terms read raw
+            # torques and velocities, so a diverged env is masked again
+            rew = self._full_rewards(
+                env, cinfo, base_lin_vel, base_ang_vel, projected_gravity,
+                contacts_touchdown, feet_swing_time, rew_lin, rew_ang)
+            rew = _where(diverged, 0.0, rew)
+        else:
+            # CaT: tracking only (:841-845)
+            rew = torch.clamp(rew_lin, min=0.0)
 
         viol_vec = torch.stack([viol[n] for n in self.cstr_names])
         episode_sums = env.episode_sums + torch.cat(
@@ -685,6 +829,15 @@ class ParkourEnv:
             feet_swing_apex=feet_swing_apex * (~contacts_filt),
             feet_clearance=feet_clearance, episode_sums=episode_sums,
             timed_out=timed_out)
+
+        # ---- the observation BEFORE resets, for off-policy bootstrapping
+        # (compute_true_next_observations, go2_terrain.py:734-756), with
+        # diverged rows zeroed ----
+        true_next_obs = None
+        if cfg.provide_true_next_obs:
+            true_next_obs = _where(diverged, 0.0, self._build_obs(
+                env, base_lin_vel, base_ang_vel, projected_gravity,
+                measured_heights, ceilings, gen))
 
         # ---- episode metrics at reset ----
         ep_sums_at_reset = torch.where(hard_done[:, None], episode_sums,
@@ -723,7 +876,10 @@ class ParkourEnv:
                          dim=-1)
         obs = hist[:, self.obs_index]
 
-        env = dataclasses.replace(env, last_actions=env.actions)
+        env = dataclasses.replace(
+            env, last_last_actions=env.last_actions, last_actions=env.actions,
+            last_joint_qd=env.phys.joint_qd,
+            last_base_lin_vel=env.phys.base_lin_vel)
         world = ParkourWorld(env=env, cat=cat_state,
                              soft_p_progress=soft_p_progress, hist_obs=hist,
                              common_step=common_step, gen=gen)
@@ -748,7 +904,74 @@ class ParkourEnv:
             "cstr_prob": cstr_prob,
             "cstr_argmax_col": cstr_argmax,
         }
+        if true_next_obs is not None:
+            info["true_next_obs"] = true_next_obs
         return world, obs, rew, done_prob, info
+
+    # ------------------------------------------------------------------
+    def _full_rewards(self, env, cinfo, blv, bav, pg, contacts_touchdown,
+                      feet_swing_time, rew_lin, rew_ang):
+        """Rough-terrain reward battery (go2_terrain.py:1024-1090), the
+        raibert heuristic (:612-646) included: -> (N,) total clipped at 0."""
+        cfg, rs = self.cfg, self.cfg.terrain_rewards
+        phys = env.phys
+        q, qd = phys.joint_q, phys.joint_qd
+        sq = torch.square
+        rew = rew_lin + rew_ang
+        rew = rew + sq(blv[:, 2]) * rs.lin_vel_z
+        rew = rew + sq(bav[:, :2]).sum(-1) * rs.ang_vel_xy
+        rew = rew + sq(pg[:, :2]).sum(-1) * rs.orient
+        rew = rew + sq(phys.base_pos[:, 2]
+                       - cfg.base_height_target) * rs.base_height
+        rew = rew + sq(env.torques).sum(-1) * rs.torque
+        rew = rew + sq(qd - env.last_joint_qd).sum(-1) * rs.joint_acc
+        rew = rew + (cinfo.calf_contact > 1.0).sum(-1) * rs.collision
+        stumble = ((torch.linalg.vector_norm(cinfo.foot_forces[..., :2],
+                                             dim=-1) > 5.0)
+                   & (cinfo.foot_forces[..., 2].abs() < 1.0))
+        rew = rew + stumble.sum(-1) * rs.stumble
+        rew = rew + (sq(env.actions - env.last_actions)
+                     + sq(env.actions - 2 * env.last_actions
+                          + env.last_last_actions)).sum(-1) \
+            * (cfg.action_scale ** 2) * rs.action_rate
+        rew = rew + sq(q - self.default_joint_q[None, :]).sum(-1) * rs.dof_pos
+        air = ((feet_swing_time - 0.25) * contacts_touchdown.float()).sum(-1) \
+            * rs.air_time
+        rew = rew + air * (torch.linalg.vector_norm(env.commands, dim=1)
+                           > cfg.vel_deadzone)
+        rew = rew + torch.clamp(qd.abs() - 12.0, 0.0, 1.0).sum(-1) \
+            * rs.dof_vel_limit
+        hip = q[:, self.haa_ix] - self.default_joint_q[self.haa_ix]
+        rew = rew + hip.abs().sum(-1) * rs.hip
+        if rs.raibert != 0.0:
+            rew = rew + self._raibert_error(env, cinfo) * rs.raibert
+        return torch.clamp(rew, min=0.0)
+
+    def _raibert_error(self, env, cinfo):
+        """Raibert footstep-placement error (go2_terrain.py:612-646): the
+        squared distance of the yaw-frame footsteps from the nominal stance
+        advanced by the gait phase."""
+        phys = env.phys
+        N = phys.base_pos.shape[0]
+        rel = cinfo.foot_positions - phys.base_pos[:, None, :]    # (N, 4, 3)
+        inv_yaw = quat_util.quat_conjugate(quat_util.yaw_quat(phys.base_quat))
+        feet_body = quat_util.quat_rotate(inv_yaw[:, None].expand(N, 4, 4),
+                                          rel)
+        dev = self.device
+        ys_nom = torch.tensor([0.125, -0.125, 0.125, -0.125], device=dev)
+        xs_nom = torch.tensor([0.225, 0.225, -0.225, -0.225], device=dev)
+        phases = (1.0 - env.foot_indices * 2.0).abs() - 0.5      # (N, 4)
+        freq = 3.0
+        x_vel = env.commands[:, 0:1]
+        y_vel = env.commands[:, 2:3] * 0.45 / 2
+        side = torch.tensor([1.0, 1.0, -1.0, -1.0], device=dev)
+        ys_off = phases * y_vel * (0.5 / freq) * side
+        xs_off = phases * x_vel * (0.5 / freq)
+        des_x = xs_nom[None, :] + xs_off
+        des_y = ys_nom[None, :] + ys_off
+        err = (torch.square(des_x - feet_body[..., 0])
+               + torch.square(des_y - feet_body[..., 1]))
+        return err.sum(dim=1)
 
     # ------------------------------------------------------------------
     def _update_terrain_level(self, env: ParkourEnvState, mask, gen):
@@ -809,6 +1032,12 @@ class ParkourEnv:
             env, phys=phys, progress=z(env.progress),
             commands=_where(mask, new_cmd, env.commands),
             actions=z(env.actions), last_actions=z(env.last_actions),
+            last_last_actions=z(env.last_last_actions),
+            last_joint_qd=z(env.last_joint_qd), gait_index=z(env.gait_index),
+            joint_pos_err_last=z(env.joint_pos_err_last),
+            joint_pos_err_last_last=z(env.joint_pos_err_last_last),
+            joint_vel_last=z(env.joint_vel_last),
+            joint_vel_last_last=z(env.joint_vel_last_last),
             friction=_where(mask, new_dr["friction"], env.friction),
             motor_Fs=_where(mask, new_dr["motor_Fs"], env.motor_Fs),
             motor_mu_v=_where(mask, new_dr["motor_mu_v"], env.motor_mu_v),
@@ -885,6 +1114,15 @@ class ParkourEnv:
             ph = (2 * np.pi * cfg.phases_freq
                   * env.progress[:, None].float() * self.dt + off)
             blocks += [torch.cos(ph), torch.sin(ph)]
+        if cfg.observe_imu:
+            # base proper acceleration: the finite-difference world
+            # acceleration of the base in the body frame (the reference reads
+            # a base force sensor, go2_terrain.py:864-868)
+            accel_w = (phys.base_lin_vel - env.last_base_lin_vel) / self.dt
+            blocks.append(quat_util.quat_rotate_inverse(
+                phys.base_quat, accel_w) * cfg.imu_scale)
+        if cfg.observe_clock_inputs:
+            blocks.append(env.clock_inputs)
         obs = torch.cat(blocks, dim=-1)
         if cfg.add_noise:
             noise = 2 * torch.rand(obs.shape, generator=gen,

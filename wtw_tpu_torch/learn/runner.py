@@ -176,7 +176,8 @@ class Runner:
         if path.endswith((".pkl", ".pkl.gz")):
             raise NotImplementedError(
                 f"{path}: resuming from a JAX checkpoint (.pkl) is not ported "
-                f"yet; resume from the port's own state_<tag>.pt")
+                f"yet (ROADMAP 1.6); resume from the port's own "
+                f"state_<tag>.pt")
         blob = torch.load(path, map_location=self.env.device,
                           weights_only=False)
         p = self.ppo

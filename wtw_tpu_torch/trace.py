@@ -1,11 +1,12 @@
 """Where one training iteration's time goes on the GPU.
 
-    python -m wtw_tpu_torch.trace [--task go1_flat|go1_mob|parkour]
+    python -m wtw_tpu_torch.trace [--task go1_flat|...|b1_mob|parkour|terrain]
                                   [--num-envs N] [--iterations 2]
 
-Builds the task at full width (go1_flat and go1_mob through `train.build`,
-Go2 parkour with CaT on the full course through `train_parkour.build`; N
-defaults to 4096 envs, go1_mob's to its preset's 4000), runs one
+Builds the task at full width (a preset of `train.build`, such as go1_flat,
+go1_mob or b1_mob; or through `train_parkour.build` Go2 parkour with CaT on
+the full course, `parkour`, or Go2Terrain on its Stack-A map, `terrain`; N
+defaults to 4096 envs, a MoB preset's to its own count), runs one
 warm-up iteration, then times the rollout and the update of each further
 iteration separately (host clock, each ending in
 `torch.cuda.synchronize()`), and profiles the last one with
@@ -27,6 +28,7 @@ import time
 
 import torch
 
+from .config import PRESETS
 from .physics.batched import GATHER_RANGE
 
 
@@ -67,21 +69,21 @@ def _group(name: str) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default="go1_flat",
-                    choices=["go1_flat", "go1_mob", "parkour"])
+                    choices=sorted(PRESETS) + ["parkour", "terrain"])
     ap.add_argument("--num-envs", type=int, default=None)
     ap.add_argument("--iterations", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.task == "parkour":
+    if args.task in ("parkour", "terrain"):
         from .train_parkour import build as build_parkour
         runner = build_parkour(args.num_envs or 4096, device="cuda",
-                               seed=args.seed,
-                               run_dir=tempfile.mkdtemp(), save_interval=0)
+                               seed=args.seed, run_dir=tempfile.mkdtemp(),
+                               save_interval=0, task=args.task)
         env, learner = runner.env, runner.learner
         world, obs = runner.world, runner.obs_n
     else:
         from .train import build
-        n = args.num_envs or (None if args.task == "go1_mob" else 4096)
+        n = args.num_envs or (None if args.task.endswith("_mob") else 4096)
         env, runner = build(args.task, n, device="cuda", seed=args.seed,
                             run_dir=tempfile.mkdtemp(), save_interval=0)
         learner = runner.ppo

@@ -2,10 +2,13 @@
 counterpart of `scripts/train.py`):
 
     python -m wtw_tpu_torch.train --preset go1_flat --num-envs 4096 --iterations 100
-    python -m wtw_tpu_torch.train --preset go1_mob --iterations 100
+    python -m wtw_tpu_torch.train --preset b1_mob --iterations 100
 
-Runs on the CUDA device unless `--device cpu` is given. Presets the port
-does not support yet raise.
+Every preset of `config.PRESETS` trains: go1, go2 and b1 on flat ground or
+with the gait-conditioned MoB recipe on the Stack-A map, and the
+mini-cheetah on flat ground. Runs on the CUDA device unless `--device cpu`
+is given. `--resume` takes the port's own `state_<tag>.pt`; a JAX `.pkl`
+raises NotImplementedError (ROADMAP 1.6).
 """
 from __future__ import annotations
 
@@ -16,8 +19,6 @@ import torch
 
 from . import config as C
 from . import resolve_device
-
-SUPPORTED_PRESETS = ("go1_flat", "go1_mob")
 
 
 def build(preset: str, num_envs=None, overrides=(), device=None, seed=0,
@@ -34,10 +35,6 @@ def build(preset: str, num_envs=None, overrides=(), device=None, seed=0,
     from .learn import PPOArgs, Runner, RunnerArgs
     from .models.actor_critic import ACArgs
 
-    if preset not in SUPPORTED_PRESETS:
-        raise NotImplementedError(
-            f"preset {preset!r} is not ported yet (supported: "
-            f"{', '.join(SUPPORTED_PRESETS)})")
     dev = resolve_device(device)
     if dev.type == "cuda":
         # true fp32 everywhere: TF32 is below the engine's precision

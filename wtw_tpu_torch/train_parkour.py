@@ -1,16 +1,21 @@
-"""Train a Go2 parkour policy with Constraints-as-Terminations on the
-PyTorch/CUDA port (the counterpart of `scripts/train_parkour.py`, reference
-newtrain.py task=Go2Parkour train=SoloTerrainPPO):
+"""Train a Go2 parkour or rough-terrain policy with
+Constraints-as-Terminations on the PyTorch/CUDA port (the counterpart of
+`scripts/train_parkour.py`, reference newtrain.py task=Go2Parkour
+train=SoloTerrainPPO):
 
     python -m wtw_tpu_torch.train_parkour --num-envs 4096 --iterations 8000
     python -m wtw_tpu_torch.train_parkour --terrain jump --easy-mode
+    python -m wtw_tpu_torch.train_parkour --task terrain [--reward-mode full]
 
-Runs on the CUDA device unless `--device cpu` is given. Writes
-`<run-dir>/metrics.csv` with the JAX script's columns (per-track-type
-`lvl_*` / `cross_*` included) and exact-resume checkpoints
+`--task terrain` is Go2Terrain: the Stack-A rough-terrain map, the fixed
+trot clock (observed), the Go2 actuator net; CaT with the tracking reward
+unless `--reward-mode full`. Runs on the CUDA device unless `--device cpu`
+is given. Writes `<run-dir>/metrics.csv` with the JAX script's columns
+(per-track-type `lvl_*` / `cross_*` included) and exact-resume checkpoints
 `<run-dir>/state_<tag>.pt` (`--resume` takes one of those). Options of the
-JAX script this port does not cover yet raise NotImplementedError: `--task
-terrain`, `--algo ppo_plus|ppornn`, and `--resume` of a JAX `.pkl`.
+JAX script this port does not cover yet raise NotImplementedError: `--algo
+ppo_plus|ppornn` (ROADMAP 1.5) and `--resume` of a JAX `.pkl` (ROADMAP
+1.6).
 """
 from __future__ import annotations
 
@@ -88,7 +93,13 @@ class ParkourRunner:
         os.makedirs(run_dir, exist_ok=True)
         self.world = env.init_state(seed)
         self.obs_n = learner.observe(env.get_observations(self.world))
-        self.kind_cols = column_kinds(env.cfg.terrain)
+        # the JAX script labels the columns with the parkour course's kinds
+        # on either task; a map with fewer columns keeps the ones it has
+        n_types = env.terrain_origins.shape[1]
+        self.kind_cols = {
+            k: [c for c in cols if c < n_types]
+            for k, cols in column_kinds(env.cfg.terrain).items()
+            if min(cols) < n_types}
         self._csv_path = os.path.join(run_dir, "metrics.csv")
         self._csv_keys = None
         self.last_stats = None
@@ -220,11 +231,13 @@ class ParkourRunner:
 def build(num_envs=4096, overrides=(), device=None, seed=0, run_dir=None,
           horizon=24, iterations=8000, anneal_iterations=None,
           terrain="mixed", easy_mode=False, soft_start=False, std_floor=0.0,
-          log_freq=10, save_interval=400) -> ParkourRunner:
+          log_freq=10, save_interval=400, task="parkour",
+          reward_mode=None) -> ParkourRunner:
     """The env, the CaT learner and the runner of `scripts/train_parkour.py`
-    for `--task parkour --algo ppo`. `overrides` are `field=value` strings:
-    `ppo.*` go to CatPPOArgs, the rest to ParkourCfg."""
-    from .envs.parkour_env import ParkourCfg, ParkourEnv
+    for `--algo ppo`. `overrides` are `field=value` strings: `ppo.*` go to
+    CatPPOArgs, the rest to ParkourCfg (on the terrain task
+    `rough_terrain.*` sizes its map)."""
+    from .envs.parkour_env import ParkourCfg, ParkourEnv, rough_terrain_cfg
     from .learn.cat_ppo import CatPPO, CatPPOArgs
     from .models import load_robot
     from .terrain import ParkourTerrainCfg
@@ -235,12 +248,22 @@ def build(num_envs=4096, overrides=(), device=None, seed=0, run_dir=None,
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     anneal = anneal_iterations or iterations
+    extra = {}
+    if task == "terrain":
+        # Go2Terrain defaults (cfg/task/Go2Terrain.yaml): gait clock on,
+        # actuator net on, CaT with the tracking reward by default
+        extra = dict(task="terrain", use_gait_clocks=True,
+                     observe_clock_inputs=True, use_actuator_net=True,
+                     rough_terrain=rough_terrain_cfg())
+    if reward_mode:
+        extra["reward_mode"] = reward_mode
     cfg = ParkourCfg(
         num_envs=num_envs,
         # soft_p ramps over the GLOBAL horizon (chunked runs pass it)
         soft_p_total_steps=horizon * anneal,
         terrain=ParkourTerrainCfg(proportions=TERRAIN_PRESETS[terrain],
-                                  easy_mode=easy_mode, soft_start=soft_start))
+                                  easy_mode=easy_mode, soft_start=soft_start),
+        **extra)
     cfg = C.apply_overrides(cfg, [s for s in overrides
                                   if not s.startswith("ppo.")])
     args = C.apply_overrides(
@@ -284,26 +307,24 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if args.task != "parkour" or args.reward_mode == "full":
-        raise NotImplementedError(
-            "--task terrain (gait clock, actuator net, full rewards) is not "
-            "ported yet (ROADMAP 1)")
     if args.algo != "ppo":
         raise NotImplementedError(
-            f"--algo {args.algo} is not ported yet (ROADMAP 1)")
+            f"--algo {args.algo} is not ported yet (ROADMAP 1.5: the Q head "
+            f"of ppo_plus, the GRU agent of ppornn)")
     if args.resume and not args.resume.endswith(".pt"):
         raise NotImplementedError(
-            "--resume takes the port's own .pt checkpoints; JAX .pkl states "
-            "are not converted yet (ROADMAP 1)")
+            "--resume takes the port's own .pt checkpoints; a JAX .pkl "
+            "state is not converted yet (ROADMAP 1.6)")
     runner = build(args.num_envs, args.set, args.device, args.seed,
                    args.run_dir, args.horizon, args.iterations,
                    args.anneal_iterations, args.terrain, args.easy_mode,
                    args.soft_start, args.std_floor, args.log_freq,
-                   args.save_interval)
+                   args.save_interval, task=args.task,
+                   reward_mode=args.reward_mode)
     if args.resume:
         runner.load(args.resume)
     env = runner.env
-    print(f"parkour terrain={args.terrain} envs={env.num_envs} "
+    print(f"{args.task} terrain={args.terrain} envs={env.num_envs} "
           f"obs={env.num_obs} device={env.device} -> {runner.run_dir}")
     runner.learn(args.iterations)
 
