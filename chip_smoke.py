@@ -63,7 +63,22 @@ Phases, each printing one JSON line with its seconds:
    envs, go2_mob at its preset's 4000 (the Go2 actuator net) and b1_mob at
    its preset's 4096 (PD control), go2_mob and b1_mob on the full
    1500 x 1500 map, each for 1 warm-up and 1 measured iteration with
-   exactly 96 launches of each kernel.
+   exactly 96 launches of each kernel;
+18. ppo_plus_training and ppornn_training: `train_parkour --algo ppo_plus`
+   (the Q head 201-512-256-128, 10 perturbations of each action a policy
+   step) and `--algo ppornn` (GRU memories of 256) on the full parkour
+   course at 4096 envs, each for 1 warm-up and 2 measured iterations with
+   exactly 192 launches of each kernel, every kernel B call with the
+   ceiling; ppo_plus also holds `improve_actions` to raising the run's
+   mean Q, ppornn its carried hiddens to being zero on exactly the rows of
+   the envs whose last step ended in a hard done;
+19. rma_training: `train --algo rma` on go1_flat at 4096 envs (obs 42,
+   privileged 2, history 630, latent 18), 1 warm-up and 2 measured
+   iterations, 192 launches each;
+20. pbt_training: `train --pbt 2` on go1_flat, 2 members of 4096 envs, an
+   exploit every 2 iterations, 2 measured iterations ending with one: 384
+   launches of each kernel, and the bottom member holding its source's
+   weights with its lr moved by a factor in [0.8, 1.25].
 
 Every training phase reports env steps/s, `max_memory_allocated` and its
 finite losses. With `--kernels` it runs phases 1-5, 8-9, 12 and 14 only
@@ -84,7 +99,7 @@ and the per-case times (`kernel_ms`, `ceiling_ms`, `go1_ms`, `flat_ms`,
 `b1_flat_ms`, `mini_cheetah_rough_ms`, ...) are device times per launch;
 before the kernels gave each env a team of lanes they were the
 events-over-calls times that are now `call_ms`. The line's `launches` is
-each kernel's count in the newest slice's path (terrain training), and
+each kernel's count in the newest slice's path (ppornn training), and
 `launches_by_path` holds the counts of every training phase.
 
 Then the kernels line, the nvidia-smi line, and the result line. Exits
@@ -94,6 +109,7 @@ cannot be imported, or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -701,30 +717,42 @@ def _finite(losses, what):
 
 
 def phase_parkour_training(device="cuda", num_envs=B, iterations=3, warmup=1,
-                           overrides=(), task="parkour", reward_mode=None):
+                           overrides=(), task="parkour", reward_mode=None,
+                           algo="ppo"):
     """`train_parkour` through the port's entry points
     (`wtw_tpu_torch.train_parkour.build` and `ParkourRunner.learn`): Go2
     parkour on the full course, or with `task="terrain"` Go2Terrain on its
-    Stack-A map (no ceiling), unless `overrides` cut them. Counts are set
-    to 0 after the warm-up, just before the measured iterations, and read
-    just after; kernel B's calls that carried a ceiling are counted too."""
+    Stack-A map (no ceiling), unless `overrides` cut them, with the learner
+    `algo` (ppo, ppo_plus or ppornn). Counts are set to 0 after the
+    warm-up, just before the measured iterations, and read just after;
+    kernel B's calls that carried a ceiling are counted too. ppo_plus also
+    checks that `improve_actions` (the CPU test's 64 perturbations, sigma
+    0.1, alpha 0.5, 3 rounds) raises the run's mean Q on the run's last
+    observations; ppornn that the carried hiddens are zero on the rows of
+    the envs whose last step ended in a hard done and nonzero elsewhere."""
     from wtw_tpu_torch.train_parkour import build
     dev = torch.device(device)
-    run_dir = tempfile.mkdtemp(prefix=f"wtw_chip_smoke_{task}_")
+    run_dir = tempfile.mkdtemp(prefix=f"wtw_chip_smoke_{task}_{algo}_")
     try:
         t0 = time.perf_counter()
         runner = build(num_envs, list(overrides), dev, seed=SEED,
                        run_dir=run_dir, log_freq=1, save_interval=0,
-                       task=task, reward_mode=reward_mode)
+                       task=task, reward_mode=reward_mode, algo=algo)
         build_s = time.perf_counter() - t0
         env, ln = runner.env, runner.learner
-        rec = _measure(runner.learn, dev, iterations, warmup, env.num_envs,
-                       ln.args.num_steps)
+        with HardDoneWatch(env) as hard:
+            rec = _measure(runner.learn, dev, iterations, warmup,
+                           env.num_envs, ln.args.num_steps)
         stats = runner.last_stats
-        losses = _finite({k: float(stats[k]) for k in (
-            "loss", "pg_loss", "value_loss")}, f"{task} training")
+        losses = _finite({k: float(stats[k]) for k in ln.LOSS_KEYS},
+                         f"{task} training ({algo})")
+        checks = {}
+        if algo == "ppo_plus":
+            checks = _check_improvement(ln, runner.obs_n)
+        elif algo == "ppornn":
+            checks = _check_hiddens(ln, hard.total)
         return dict(
-            task=task, reward_mode=env.cfg.reward_mode,
+            task=task, algo=algo, reward_mode=env.cfg.reward_mode,
             num_envs=env.num_envs, num_obs=env.num_obs,
             heightfield_shape=list(env.hf.shape),
             has_ceiling=env.hf_ceiling is not None,
@@ -732,13 +760,77 @@ def phase_parkour_training(device="cuda", num_envs=B, iterations=3, warmup=1,
                           else env.hf_ceiling.is_flat),
             actuator_net=env.actuator_params is not None,
             gait_clock=env.cfg.use_gait_clocks, build_s=build_s,
-            iterations=iterations, **rec, losses=losses,
+            iterations=iterations, **rec, losses=losses, **checks,
             expected_launches_per_kernel=(
                 iterations * ln.args.num_steps * env.cfg.decimation),
-            terrain_level_mean=float(stats["terrain_level_mean"]),
+            terrain_level_mean=float(stats.get("terrain_level_mean", 0.0)),
             mean_step_reward=float(stats["mean_step_reward"]))
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
+
+
+class HardDoneWatch:
+    """Counts, on the device, the hard dones the env's steps return, by
+    wrapping the env object's `step`; `total` is read after the run."""
+
+    def __init__(self, env):
+        self.env, self.count = env, 0
+
+    def __enter__(self):
+        real = self.env.step
+
+        def watched(*args, **kw):
+            out = real(*args, **kw)
+            self.count = self.count + out[4]["true_dones"].sum()
+            return out
+        self.env.step = watched
+        return self
+
+    def __exit__(self, *exc):
+        del self.env.step
+
+    @property
+    def total(self) -> int:
+        return int(self.count)
+
+
+@torch.no_grad()
+def _check_improvement(ln, obs_n):
+    """`improve_actions` with tests/test_learners.py's settings on the
+    run's Q head and last observations must raise the mean Q."""
+    from wtw_tpu_torch.learn.cat_ppo_plus import improve_actions
+    args = dataclasses.replace(ln.args, n_perturbations=64, sigma=0.1,
+                               alpha=0.5, num_improvement_steps=3)
+    gen = torch.Generator(device=obs_n.device).manual_seed(SEED)
+    agent = ln.agent
+    mean = agent.actor_mean(obs_n)
+    a0 = mean + torch.exp(agent.actor_logstd) * torch.randn(
+        mean.shape, generator=gen, device=mean.device)
+    noise = torch.randn((3, 64) + tuple(a0.shape), generator=gen,
+                        device=a0.device)
+    a1 = improve_actions(agent, obs_n, a0, noise, args)
+    q0 = float(agent.q_value(obs_n, a0).mean())
+    q1 = float(agent.q_value(obs_n, a1).mean())
+    if not q1 > q0:
+        raise AssertionError(f"improve_actions lowered the mean Q: {q0} -> "
+                             f"{q1}")
+    return dict(improvement={"q_before": q0, "q_after": q1, "rows": int(
+        obs_n.shape[0])})
+
+
+def _check_hiddens(ln, hard_dones_in_run):
+    """The carried hiddens after the run: zero on the rows of the envs
+    whose last step ended in a hard done, nonzero on every other row."""
+    done = ln.next_true_done > 0.5
+    out = {}
+    for name in ("ac_hidden", "cr_hidden"):
+        norm = getattr(ln, name).abs().sum(1)
+        if bool((norm[done] != 0).any()) or not bool((norm[~done] > 0).all()):
+            raise AssertionError(f"ppornn: {name} not zeroed on exactly the "
+                                 f"hard-done rows")
+        out[f"{name}_mean_abs"] = float(getattr(ln, name).abs().mean())
+    return dict(hiddens={**out, "hard_done_rows_last_step": int(done.sum()),
+                         "hard_dones_in_run": hard_dones_in_run})
 
 
 def _check_launches(name, rec):
@@ -752,13 +844,13 @@ def _check_launches(name, rec):
 
 
 def phase_preset_training(preset, device="cuda", num_envs=None, iterations=3,
-                          warmup=1, overrides=()):
+                          warmup=1, overrides=(), algo="ppo_cse"):
     """A preset of `wtw_tpu_torch.train` through the port's entry points
-    (`train.build` and `Runner.learn`) at `num_envs`, or the preset's own
-    count. On a Stack-A map, the field on the card must equal a second host
-    build of the map (whose seconds it reports). Counts are set to 0 after
-    the warm-up, just before the measured iterations, and read just after
-    them."""
+    (`train.build` and the runner's `learn`: `Runner`, or `RMARunner` with
+    `algo="rma"`) at `num_envs`, or the preset's own count. On a Stack-A
+    map, the field on the card must equal a second host build of the map
+    (whose seconds it reports). Counts are set to 0 after the warm-up, just
+    before the measured iterations, and read just after them."""
     from wtw_tpu_torch.terrain import build_terrain
     from wtw_tpu_torch.train import build
     dev = torch.device(device)
@@ -767,7 +859,7 @@ def phase_preset_training(preset, device="cuda", num_envs=None, iterations=3,
         t0 = time.perf_counter()
         env, runner = build(preset, num_envs, list(overrides), dev,
                             seed=SEED, run_dir=run_dir, log_freq=1,
-                            save_interval=0)
+                            save_interval=0, algo=algo)
         build_s = time.perf_counter() - t0
         terrain = {}
         if not env.hf.is_flat:
@@ -784,9 +876,10 @@ def phase_preset_training(preset, device="cuda", num_envs=None, iterations=3,
         stats = runner.last_stats
         losses = _finite({k: float(stats[k]) for k in (
             "loss", "surrogate_loss", "value_loss", "adaptation_loss",
-            "kl_mean")}, f"{preset} training")
+            "kl_mean")}, f"{preset} training ({algo})")
         return dict(
-            preset=preset, robot=env.model.name, num_envs=env.num_envs,
+            preset=preset, algo=algo, robot=env.model.name,
+            num_envs=env.num_envs,
             num_obs=env.num_obs, num_obs_history=env.num_obs_history,
             num_privileged_obs=env.num_privileged_obs,
             control_type=env.cfg.control.control_type,
@@ -796,7 +889,62 @@ def phase_preset_training(preset, device="cuda", num_envs=None, iterations=3,
                 iterations * runner.args.num_steps_per_env
                 * env.cfg.control.decimation),
             mean_step_reward=float(stats["mean_step_reward"]),
-            mean_episode_length=float(stats["mean_episode_length"]))
+            mean_episode_length=(float(stats["mean_episode_length"])
+                                 if "mean_episode_length" in stats else None),
+            lr=float(stats["lr"]))
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def phase_pbt_training(device="cuda", num_envs=B, population=2, iterations=2,
+                       warmup=0, overrides=()):
+    """`train --pbt P` on go1_flat through the port's entry points
+    (`train.build(..., pbt=P)` and `Population.learn`), with an exploit
+    every 2 iterations: the measured run ends with one. Its bottom member
+    must then hold its source's weights exactly, with an lr of the source's
+    times a factor in [0.8, 1.25]. Each kernel launches P x iterations x
+    24 x 4 times."""
+    from wtw_tpu_torch.learn.pbt import PBTArgs
+    from wtw_tpu_torch.train import build
+    dev = torch.device(device)
+    run_dir = tempfile.mkdtemp(prefix="wtw_chip_smoke_pbt_")
+    try:
+        t0 = time.perf_counter()
+        env, pop = build("go1_flat", num_envs, list(overrides), dev,
+                         seed=SEED, run_dir=run_dir, log_freq=1,
+                         save_interval=0, pbt=population,
+                         pbt_args=PBTArgs(exploit_interval=2))
+        build_s = time.perf_counter() - t0
+        T = pop.args.num_steps_per_env
+        rec = _measure(pop.learn, dev, iterations, warmup,
+                       population * env.num_envs, T)
+        if (warmup + iterations) % 2 or pop.last_exploit is None:
+            raise AssertionError("pbt training: the run did not end with an "
+                                 "exploit")
+        ex = pop.last_exploit
+        for b, src in zip(ex["bottom"], ex["src"]):
+            wb = pop.members[b].ac.state_dict()
+            ws = pop.members[src].ac.state_dict()
+            if not all(torch.equal(wb[k], ws[k]) for k in wb):
+                raise AssertionError(f"pbt training: member {b} does not "
+                                     f"hold its source {src}'s weights")
+            factor = ex["lr_after"][b] / ex["lr_before"][src]
+            if not 0.8 <= factor <= 1.25:
+                raise AssertionError(f"pbt training: member {b}'s lr moved "
+                                     f"by {factor}")
+        losses = {f"{i}_{k}": float(s[k]) for i, s in enumerate(
+            pop.last_stats) for k in ("loss", "surrogate_loss", "value_loss",
+                                      "adaptation_loss")}
+        return dict(
+            preset="go1_flat", population=population, num_envs=env.num_envs,
+            build_s=build_s, iterations=iterations, **rec,
+            losses=_finite(losses, "pbt training"),
+            fitness=[float(f) for f in pop.fitness], lr=pop.lr.tolist(),
+            exploit=dict(ex, lr_factor=[
+                ex["lr_after"][b] / ex["lr_before"][src]
+                for b, src in zip(ex["bottom"], ex["src"])]),
+            expected_launches_per_kernel=(
+                population * iterations * T * env.cfg.control.decimation))
     finally:
         shutil.rmtree(run_dir, ignore_errors=True)
 
@@ -829,8 +977,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
     smi_line = smi[0] if smi else "unavailable"
-    name = torch.cuda.get_device_name(0)
-    emit({"phase": "device", "name": name, "nvidia_smi": smi_line,
+    device_name = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "name": device_name, "nvidia_smi": smi_line,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "seconds": time.perf_counter() - t0})
 
@@ -923,6 +1071,23 @@ def main(argv=None) -> int:
             iterations=1)
         _check_launches(f"{preset} training", presets[preset])
 
+    # the sixth slice: the other learners of the two training CLIs
+    plus = run("ppo_plus_training", phase_parkour_training, iterations=2,
+               algo="ppo_plus")
+    _check_launches("ppo_plus training", plus)
+    rnn = run("ppornn_training", phase_parkour_training, iterations=2,
+              algo="ppornn")
+    _check_launches("ppornn training", rnn)
+    for algo, r in (("ppo_plus", plus), ("ppornn", rnn)):
+        if r["dynamics_calls_with_ceiling"] != r["launches"]["dynamics"]:
+            raise AssertionError(f"{algo} training: kernel B ran without "
+                                 f"the ceiling")
+    rma = run("rma_training", phase_preset_training, "go1_flat", num_envs=B,
+              iterations=2, algo="rma")
+    _check_launches("rma training", rma)
+    pbt = run("pbt_training", phase_pbt_training)
+    _check_launches("pbt training", pbt)
+
     ka, kb, rg = results["kernel_a"], results["kernel_b"], results["ragged"]
     ka2, kc = results["kernel_a_go2"], results["kernel_b_ceiling"]
     ke = results["kernel_b_edges"]
@@ -932,7 +1097,8 @@ def main(argv=None) -> int:
                   + [c for r in robot_b.values() for c in r.values()],
                   key=lambda r: r["max_abs_err"])
     paths = {"go1_flat": tr, "parkour": pk, "go1_mob": mob,
-             "terrain": terrain, "terrain_full_rewards": full, **presets}
+             "terrain": terrain, "terrain_full_rewards": full, **presets,
+             "ppo_plus": plus, "ppornn": rnn, "rma": rma, "pbt": pbt}
     by_path = lambda name: {p: r["launches"][name] for p, r in paths.items()}
     per_robot_a = {}
     for k, r in robot_a.items():
@@ -950,7 +1116,7 @@ def main(argv=None) -> int:
                                 f"{k}_{terr}_max_abs_err": c["max_abs_err"]})
     kernels = [
         dict(name=K.FK.name, route="cuda", source=K.FK.source,
-             replaces=K.FK.replaces, launches=terrain["launches"][K.FK.name],
+             replaces=K.FK.replaces, launches=rnn["launches"][K.FK.name],
              launches_by_path=by_path(K.FK.name),
              max_abs_err=max([ka["max_abs_err"], ka2["max_abs_err"],
                               rg["kernel_a"]["max_abs_err"]]
@@ -966,7 +1132,7 @@ def main(argv=None) -> int:
              launch_shape=shape[K.FK.name], library_ms=None),
         dict(name=K.DYNAMICS.name, route="cuda", source=K.DYNAMICS.source,
              replaces=K.DYNAMICS.replaces,
-             launches=terrain["launches"][K.DYNAMICS.name],
+             launches=rnn["launches"][K.DYNAMICS.name],
              launches_by_path=by_path(K.DYNAMICS.name),
              max_abs_err=max(worst_b["max_abs_err"], kc["max_abs_err"],
                              kc["no_ceiling_max_abs_err"]),
@@ -996,7 +1162,7 @@ def main(argv=None) -> int:
     ]
     emit({"kernels": kernels})
     print(smi_line, flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                  "count": torch.cuda.device_count()}})
     return 0
 

@@ -3,9 +3,11 @@ imports jax, flax, optax or the JAX package (the GPU machine has none of
 them). A subprocess blocks those names with a meta-path finder, imports
 every module of the port and chip_smoke, and runs chip_smoke's training
 phases (go1_flat, Go2 parkour on a 3 x 5 course, go1_mob on a 3 x 3-cell
-map, Go2Terrain on a 3 x 3-cell map in both reward modes, and the presets
+map, Go2Terrain on a 3 x 3-cell map in both reward modes, the presets
 go2_flat, b1_flat, mini_cheetah_flat, go2_mob and b1_mob, the last two on
-3 x 3 cells) on the CPU at 16 envs, 1 iteration and narrow widths.
+3 x 3 cells, and the learners ppo_plus and ppornn on the 3 x 5 course,
+rma and a 2-member pbt on go1_flat) on the CPU at 16 envs, 1 iteration
+(2 for pbt, which ends with an exploit) and narrow widths.
 """
 import json
 import os
@@ -53,11 +55,21 @@ terrain = {mode: chip_smoke.phase_parkour_training(
 presets = {p: train(p, small_map if p.endswith("_mob") else ())
            for p in ("go2_flat", "b1_flat", "mini_cheetah_flat", "go2_mob",
                      "b1_mob")}
+course = ["terrain.num_levels=3", "terrain.num_terrains=5",
+          "terrain.border_size=4.0", "ppo.hidden=32,16"]
+learners = {algo: chip_smoke.phase_parkour_training(
+    "cpu", num_envs=16, iterations=1, warmup=0, overrides=course,
+    algo=algo) for algo in ("ppo_plus", "ppornn")}
+learners["rma"] = chip_smoke.phase_preset_training(
+    "go1_flat", "cpu", num_envs=16, iterations=1, warmup=0,
+    overrides=narrow, algo="rma")
+learners["pbt"] = chip_smoke.phase_pbt_training(
+    "cpu", num_envs=16, overrides=narrow)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": names, "leaked": leaked,
                   "losses": rec["losses"], "launches": rec["launches"],
                   "parkour": pk, "mob": mob, "terrain": terrain,
-                  "presets": presets}))
+                  "presets": presets, "learners": learners}))
 """
 
 
@@ -77,14 +89,29 @@ def test_port_imports_no_jax_and_trains_on_cpu():
                 "wtw_tpu_torch.learn.cat_ppo", "wtw_tpu_torch.train_parkour",
                 "wtw_tpu_torch.terrain.stack_a", "wtw_tpu_torch.envs.gait",
                 "wtw_tpu_torch.envs.wrappers",
-                "wtw_tpu_torch.models.actuator_net"):
+                "wtw_tpu_torch.models.actuator_net",
+                "wtw_tpu_torch.learn.cat_ppo_plus",
+                "wtw_tpu_torch.learn.cat_ppornn",
+                "wtw_tpu_torch.learn.ppo_rma", "wtw_tpu_torch.learn.pbt"):
         assert mod in out["modules"]
     pk, mob, terrain = out["parkour"], out["mob"], out["terrain"]
-    presets = out["presets"]
+    presets, learners = out["presets"], out["learners"]
     for losses in [out["losses"], pk["losses"], mob["losses"]] + [
             r["losses"] for r in list(terrain.values())
-            + list(presets.values())]:
+            + list(presets.values()) + list(learners.values())]:
         assert all(abs(v) < 1e6 for v in losses.values())
+    assert set(learners["ppo_plus"]["losses"]) == {"loss", "pg_loss",
+                                                   "value_loss", "q_loss"}
+    imp = learners["ppo_plus"]["improvement"]
+    assert imp["q_after"] > imp["q_before"]
+    assert learners["ppornn"]["hiddens"]["ac_hidden_mean_abs"] > 0
+    for algo in ("ppo_plus", "ppornn"):
+        assert learners[algo]["dynamics_calls_with_ceiling"] == 96
+    assert learners["rma"]["algo"] == "rma"
+    ex = learners["pbt"]["exploit"]
+    assert len(ex["bottom"]) == 1 and 0.8 <= ex["lr_factor"][0] <= 1.25
+    for r in learners.values():
+        assert r["launches"] == {"fk": 0, "dynamics": 0}
     assert pk["num_obs"] == 189 and not pk["ceiling_flat"]
     # every kernel B call of the 24 x 4 substeps carries the ceiling
     assert pk["dynamics_calls_with_ceiling"] == 96

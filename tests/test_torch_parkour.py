@@ -200,16 +200,6 @@ def envs():
     return jenv, tenv, jworld
 
 
-def test_parkour_env_rejects_unported_options():
-    """The terrain task and every env option are ported; `train_parkour`
-    still refuses the learners of ROADMAP 1.5, `--algo ppo_plus` and
-    `--algo ppornn`, before it builds anything."""
-    from wtw_tpu_torch.train_parkour import main as parkour_main
-    for algo in ("ppo_plus", "ppornn"):
-        with pytest.raises(NotImplementedError, match="1.5"):
-            parkour_main(["--device", "cpu", "--algo", algo])
-
-
 def test_parkour_env_steps_match_jax(envs):
     """3 policy steps (12 substeps through both heightfields) from one
     carried-over world, with the crawl env under its ceiling. No hard done

@@ -24,14 +24,8 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
     [{'w': (in, out), 'b': (out,)}, ...], 'std': (A,)} -> a state_dict for
     `models.actor_critic.ActorCritic` (Linear weights are (out, in); the
     i-th Linear of a net sits at Sequential index 2 i)."""
-    sd = {}
-    for net in _NETS:
-        for i, layer in enumerate(tree[net]):
-            sd[f"{net}.{2 * i}.weight"] = torch.from_numpy(
-                np.array(np.asarray(layer["w"]).T, np.float32))
-            sd[f"{net}.{2 * i}.bias"] = torch.from_numpy(
-                np.array(layer["b"], np.float32))
-    sd["std"] = torch.from_numpy(np.array(tree["std"], np.float32))
+    sd = _mlp_from_jax(tree, _NETS)
+    sd["std"] = _f32(tree["std"])
     return sd
 
 
@@ -89,19 +83,57 @@ def actuator_params_from_jax(params) -> Dict[str, torch.Tensor]:
             for k, v in params.items()}
 
 
+def _f32(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _mlp_from_jax(tree, nets) -> Dict[str, torch.Tensor]:
+    """[{'w': (in, out), 'b': (out,)}, ...] per net -> the entries of an
+    nn.Sequential(Linear, act, ...) (weights (out, in), the i-th Linear at
+    index 2 i)."""
+    sd = {}
+    for net in nets:
+        for i, layer in enumerate(tree[net]):
+            sd[f"{net}.{2 * i}.weight"] = _f32(np.asarray(layer["w"]).T)
+            sd[f"{net}.{2 * i}.bias"] = _f32(layer["b"])
+    return sd
+
+
 def cat_params_from_jax(tree) -> Dict[str, torch.Tensor]:
     """JAX CaT agent parameters {'critic'|'actor_mean': [{'w': (in, out),
     'b': (out,)}, ...], 'actor_logstd': (A,)} -> a state_dict for
     `learn.cat_ppo.CatAgent`."""
-    sd = {}
-    for net in ("critic", "actor_mean"):
-        for i, layer in enumerate(tree[net]):
-            sd[f"{net}.{2 * i}.weight"] = torch.from_numpy(
-                np.array(np.asarray(layer["w"]).T, np.float32))
-            sd[f"{net}.{2 * i}.bias"] = torch.from_numpy(
-                np.array(layer["b"], np.float32))
-    sd["actor_logstd"] = torch.from_numpy(
-        np.array(tree["actor_logstd"], np.float32))
+    sd = _mlp_from_jax(tree, ("critic", "actor_mean"))
+    sd["actor_logstd"] = _f32(tree["actor_logstd"])
+    return sd
+
+
+def plus_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """JAX PPO+ agent parameters (the CaT agent's and 'q_net') -> a
+    state_dict for `learn.cat_ppo_plus.PlusAgent`."""
+    return {**cat_params_from_jax(tree), **_mlp_from_jax(tree, ("q_net",))}
+
+
+def rnn_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """JAX PPO-RNN agent parameters (the CaT heads and the GRU memories
+    {'w_ih': (in, 3H), 'w_hh': (H, 3H), 'b_ih', 'b_hh': (3H,)}) -> a
+    state_dict for `learn.cat_ppornn.RNNAgent` (nn.GRUCell keeps the
+    weights (3H, in), the gates in the same r, z, n order)."""
+    sd = cat_params_from_jax(tree)
+    for net in ("actor_memory", "critic_memory"):
+        g = tree[net]
+        sd[f"{net}.weight_ih"] = _f32(np.asarray(g["w_ih"]).T)
+        sd[f"{net}.weight_hh"] = _f32(np.asarray(g["w_hh"]).T)
+        sd[f"{net}.bias_ih"] = _f32(g["b_ih"])
+        sd[f"{net}.bias_hh"] = _f32(g["b_hh"])
+    return sd
+
+
+def rma_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """JAX RMA parameters {'encoder'|'adaptation'|'actor'|'critic': [...],
+    'std': (A,)} -> a state_dict for `learn.ppo_rma.RMAModel`."""
+    sd = _mlp_from_jax(tree, ("encoder", "adaptation", "actor", "critic"))
+    sd["std"] = _f32(tree["std"])
     return sd
 
 

@@ -98,14 +98,16 @@ def _mlp(sizes, out_gain: float, generator=None) -> nn.Sequential:
 
 
 class CatAgent(nn.Module):
-    """Actor mean, critic and log-std (init_agent, `cat_ppo.py:92-148`)."""
+    """Actor mean, critic and log-std (init_agent, `cat_ppo.py:92-148`).
+    The heads read `head_in` features (default: the observation)."""
 
     def __init__(self, num_obs: int, num_actions: int, hidden=(512, 256, 128),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 head_in: Optional[int] = None):
         super().__init__()
-        h = list(hidden)
-        self.critic = _mlp([num_obs] + h + [1], 1.0, generator)
-        self.actor_mean = _mlp([num_obs] + h + [num_actions], 0.01, generator)
+        h, n_in = list(hidden), head_in or num_obs
+        self.critic = _mlp([n_in] + h + [1], 1.0, generator)
+        self.actor_mean = _mlp([n_in] + h + [num_actions], 0.01, generator)
         self.actor_logstd = nn.Parameter(torch.zeros(num_actions))
 
     def value(self, obs: torch.Tensor) -> torch.Tensor:
@@ -140,6 +142,29 @@ def cat_gae(rewards, dones, true_dones, values, next_value, next_done,
     return advs, advs + values
 
 
+def clipped_terms(args: CatPPOArgs, logp, old_logp, adv, newv, ret_n, val_n):
+    """The clipped surrogate on advantages normalized over the minibatch
+    (population std, as `jnp.std`) and the clipped value loss on normalized
+    values; -> (pg_loss, v_loss)."""
+    ratio = torch.exp(logp - old_logp)
+    if args.norm_adv:
+        m = adv.mean()
+        v = ((adv - m) ** 2).mean()
+        adv = (adv - m) / (torch.sqrt(v) + 1e-8)
+    pg_loss = torch.maximum(
+        -adv * ratio,
+        -adv * torch.clamp(ratio, 1 - args.clip_coef, 1 + args.clip_coef)
+    ).mean()
+    if args.clip_vloss:
+        v_cl = val_n + torch.clamp(newv - val_n, -args.clip_coef,
+                                   args.clip_coef)
+        v_loss = 0.5 * torch.maximum((newv - ret_n) ** 2,
+                                     (v_cl - ret_n) ** 2).mean()
+    else:
+        v_loss = 0.5 * ((newv - ret_n) ** 2).mean()
+    return pg_loss, v_loss
+
+
 @dataclasses.dataclass
 class CatRollout:
     """(T, N, ...) buffers of one rollout; dones are the carried values
@@ -158,6 +183,11 @@ class CatPPO:
     normalizers, the iteration count, the dones carried between rollouts
     and the generator for action noise and minibatch permutations."""
 
+    # names of what `loss` returns, averaged over the minibatches
+    LOSS_KEYS = ("loss", "pg_loss", "value_loss")
+    # the JAX CaT learner floors the log-std after each step; PPO+ does not
+    APPLIES_STD_FLOOR = True
+
     def __init__(self, env, args: CatPPOArgs = CatPPOArgs(), seed: int = 0):
         self.env, self.args = env, args
         dev = env.device
@@ -165,8 +195,7 @@ class CatPPO:
         self.gen.manual_seed(int(seed) + 1)
         init_gen = torch.Generator()
         init_gen.manual_seed(int(seed))
-        self.agent = CatAgent(env.num_obs, env.num_actions, args.hidden,
-                              generator=init_gen).to(dev)
+        self.agent = self.make_agent(init_gen).to(dev)
         self.opt = torch.optim.Adam(self.agent.parameters(),
                                     lr=args.learning_rate, eps=1e-5)
         self.obs_rms = RMSState.create((env.num_obs,), dev)
@@ -175,28 +204,61 @@ class CatPPO:
         self.next_done = torch.zeros(env.num_envs, device=dev)
         self.next_true_done = torch.zeros(env.num_envs, device=dev)
 
+    def make_agent(self, generator) -> nn.Module:
+        return CatAgent(self.env.num_obs, self.env.num_actions,
+                        self.args.hidden, generator=generator)
+
+    def state(self) -> dict:
+        """Everything an exact resume needs, for `torch.save`."""
+        return {"agent": self.agent.state_dict(), "opt": self.opt.state_dict(),
+                "obs_rms": dataclasses.asdict(self.obs_rms),
+                "value_rms": dataclasses.asdict(self.value_rms),
+                "iteration": self.iteration, "gen_state": self.gen.get_state(),
+                "next_done": self.next_done,
+                "next_true_done": self.next_true_done}
+
+    def load_state(self, blob: dict):
+        self.agent.load_state_dict(blob["agent"])
+        self.opt.load_state_dict(blob["opt"])
+        self.obs_rms = RMSState(**blob["obs_rms"])
+        self.value_rms = RMSState(**blob["value_rms"])
+        self.iteration = blob["iteration"]
+        self.gen.set_state(blob["gen_state"])
+        self.next_done, self.next_true_done = (blob["next_done"],
+                                               blob["next_true_done"])
+
     def observe(self, obs: torch.Tensor) -> torch.Tensor:
         """Fold a raw observation into the normalizer; -> normalized."""
         self.obs_rms = rms_update(self.obs_rms, obs)
         return rms_norm(self.obs_rms, obs)
 
     # ------------------------------------------------------------------
+    def sample(self, t: int, mean, noise=None):
+        """mean + std eps; `noise` (T, N, A) replaces the drawn eps."""
+        eps = (noise[t] if noise is not None else torch.randn(
+            mean.shape, generator=self.gen, device=mean.device))
+        return mean + torch.exp(self.agent.actor_logstd) * eps
+
+    def act(self, t: int, obs_norm, noise=None):
+        """The rollout's step-t policy: sampled actions, their log-prob and
+        the value."""
+        agent = self.agent
+        mean = agent.actor_mean(obs_norm)
+        actions = self.sample(t, mean, noise)
+        return actions, agent.log_prob(mean, actions), agent.value(obs_norm)
+
     @torch.no_grad()
-    def rollout(self, world, obs_norm, noise: Optional[torch.Tensor] = None):
-        """`num_steps` env steps; `noise` (T, N, A) replaces the drawn
-        action noise. -> (world, next normalized obs, CatRollout, metrics)."""
-        env, agent = self.env, self.agent
+    def rollout(self, world, obs_norm, noise: Optional[torch.Tensor] = None,
+                **draws):
+        """`num_steps` env steps; `noise` (T, N, A) and a subclass's other
+        `draws` replace the drawn ones. -> (world, next normalized obs,
+        CatRollout, metrics)."""
+        env = self.env
         done, true_done = self.next_done, self.next_true_done
-        std = torch.exp(agent.actor_logstd)
         steps = []
         ep_sums = n_resets = ep_len = cross = dones_t = 0
         for t in range(self.args.num_steps):
-            mean = agent.actor_mean(obs_norm)
-            eps = (noise[t] if noise is not None else torch.randn(
-                mean.shape, generator=self.gen, device=mean.device))
-            actions = mean + std * eps
-            logp = agent.log_prob(mean, actions)
-            value = agent.value(obs_norm)
+            actions, logp, value = self.act(t, obs_norm, noise, **draws)
             world, next_obs, rew, done_prob, info = env.step(world, actions)
             steps.append((obs_norm, actions, logp, rew, done, true_done,
                           value))
@@ -227,23 +289,9 @@ class CatPPO:
         args, agent = self.args, self.agent
         obs, actions, old_logp, adv, ret_n, val_n = batch
         logp = agent.log_prob(agent.actor_mean(obs), actions)
-        ratio = torch.exp(logp - old_logp)
-        if args.norm_adv:
-            m = adv.mean()
-            v = ((adv - m) ** 2).mean()
-            adv = (adv - m) / (torch.sqrt(v) + 1e-8)
-        pg_loss = torch.maximum(
-            -adv * ratio,
-            -adv * torch.clamp(ratio, 1 - args.clip_coef,
-                               1 + args.clip_coef)).mean()
-        newv = rms_norm(value_rms, agent.value(obs))
-        if args.clip_vloss:
-            v_cl = val_n + torch.clamp(newv - val_n, -args.clip_coef,
-                                       args.clip_coef)
-            v_loss = 0.5 * torch.maximum((newv - ret_n) ** 2,
-                                         (v_cl - ret_n) ** 2).mean()
-        else:
-            v_loss = 0.5 * ((newv - ret_n) ** 2).mean()
+        pg_loss, v_loss = clipped_terms(
+            args, logp, old_logp, adv, rms_norm(value_rms, agent.value(obs)),
+            ret_n, val_n)
         loss = pg_loss - args.ent_coef * agent.entropy() + args.vf_coef * v_loss
         return loss, pg_loss, v_loss
 
@@ -254,6 +302,34 @@ class CatPPO:
             return args.learning_rate
         frac = min(max(1.0 - self.iteration / args.num_iterations, 0.0), 1.0)
         return frac * args.learning_rate
+
+    def set_lr(self) -> float:
+        lr = self.lr()
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        return lr
+
+    def optimize(self, out) -> torch.Tensor:
+        """Backward of `out[0]`, clip, Adam step (and the std floor); ->
+        the detached row of `out`."""
+        self.opt.zero_grad(set_to_none=True)
+        out[0].backward()
+        clip_by_global_norm_(list(self.agent.parameters()),
+                             self.args.max_grad_norm)
+        self.opt.step()
+        if self.APPLIES_STD_FLOOR and self.args.std_floor > 0.0:
+            with torch.no_grad():
+                self.agent.actor_logstd.clamp_(
+                    min=math.log(self.args.std_floor))
+        return torch.stack([x.detach() for x in out])
+
+    def stats(self, rows, lr) -> Dict[str, torch.Tensor]:
+        """Minibatch rows averaged under LOSS_KEYS, the lr, one iteration
+        more."""
+        self.iteration += 1
+        stats = dict(zip(self.LOSS_KEYS, torch.stack(rows).mean(0).unbind()))
+        stats["lr"] = lr
+        return stats
 
     def update(self, traj: CatRollout, next_obs_norm,
                perms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -277,11 +353,8 @@ class CatPPO:
         self.value_rms = value_rms
         b_val_n, b_ret_n = rms_norm(value_rms, b_val), rms_norm(value_rms,
                                                                 b_ret)
-        lr = self.lr()
-        for group in self.opt.param_groups:
-            group["lr"] = lr
+        lr = self.set_lr()
         mb = T * N // args.num_minibatches
-        params = list(agent.parameters())
         rows = []
         for ep in range(args.update_epochs):
             perm = (perms[ep] if perms is not None else torch.randperm(
@@ -290,20 +363,8 @@ class CatPPO:
                     args.num_minibatches, mb):
                 batch = (b_obs[idx], b_act[idx], b_logp[idx], b_adv[idx],
                          b_ret_n[idx], b_val_n[idx])
-                self.opt.zero_grad(set_to_none=True)
-                loss, pg, vl = self.loss(batch, value_rms)
-                loss.backward()
-                clip_by_global_norm_(params, args.max_grad_norm)
-                self.opt.step()
-                if args.std_floor > 0.0:
-                    with torch.no_grad():
-                        agent.actor_logstd.clamp_(
-                            min=math.log(args.std_floor))
-                rows.append(torch.stack([loss.detach(), pg.detach(),
-                                         vl.detach()]))
-        self.iteration += 1
-        loss, pg, vl = torch.stack(rows).mean(0).unbind()
-        return {"loss": loss, "pg_loss": pg, "value_loss": vl, "lr": lr}
+                rows.append(self.optimize(self.loss(batch, value_rms)))
+        return self.stats(rows, lr)
 
     def train_iteration(self, world, obs_norm, noise=None, perms=None):
         """Rollout + update; -> (world, next normalized obs, stats)."""

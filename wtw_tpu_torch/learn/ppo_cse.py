@@ -113,6 +113,19 @@ class PPO:
         self.lr = float(args.learning_rate)
         self.iteration = 0
 
+    def state(self) -> dict:
+        """Everything an exact resume needs, for `torch.save`."""
+        return {"ac": self.ac.state_dict(), "opt": self.opt.state_dict(),
+                "adapt_opt": self.adapt_opt.state_dict(), "lr": self.lr,
+                "iteration": self.iteration, "gen_state": self.gen.get_state()}
+
+    def load_state(self, blob: dict):
+        self.ac.load_state_dict(blob["ac"])
+        self.opt.load_state_dict(blob["opt"])
+        self.adapt_opt.load_state_dict(blob["adapt_opt"])
+        self.lr, self.iteration = blob["lr"], blob["iteration"]
+        self.gen.set_state(blob["gen_state"])
+
     # ------------------------------------------------------------------
     @torch.no_grad()
     def rollout(self, world, obs_dict):

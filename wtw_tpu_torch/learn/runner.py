@@ -22,6 +22,7 @@ import torch
 
 from ..models import actor_critic as ac
 from . import ppo_cse
+from .ppo_rma import RMA
 
 
 @dataclass
@@ -70,6 +71,16 @@ def world_from_blob(blob: dict, device):
                       obs_history=blob["obs_history"],
                       gravity_offset=blob["gravity_offset"],
                       common_step=blob["common_step"], gen=gen)
+
+
+def load_checkpoint(path: str, device) -> dict:
+    """`torch.load` of one of the port's own checkpoints; a JAX `.pkl`
+    raises NotImplementedError (ROADMAP 1.6)."""
+    if path.endswith((".pkl", ".pkl.gz")):
+        raise NotImplementedError(
+            f"{path}: resuming from a JAX checkpoint (.pkl) is not ported "
+            f"yet (ROADMAP 1.6); resume from the port's own .pt")
+    return torch.load(path, map_location=device, weights_only=False)
 
 
 class Runner:
@@ -155,12 +166,8 @@ class Runner:
         ck = os.path.join(self.runner_args.run_dir, "checkpoints")
         path = os.path.join(ck, f"state_{tag}.pt")
         p = self.ppo
-        torch.save({
-            "ac": p.ac.state_dict(), "opt": p.opt.state_dict(),
-            "adapt_opt": p.adapt_opt.state_dict(), "lr": p.lr,
-            "iteration": p.iteration, "gen_state": p.gen.get_state(),
-            "world": world_blob(self.world), "obs_dict": self.obs_dict,
-            "cfg": self.env.cfg}, path)
+        torch.save({**p.state(), "world": world_blob(self.world),
+                    "obs_dict": self.obs_dict, "cfg": self.env.cfg}, path)
         export = {}
         for net in ("adaptation", "actor"):
             lins = [m for m in getattr(p.ac, net)
@@ -173,19 +180,8 @@ class Runner:
 
     def load(self, path):
         """Restore a checkpoint of the port's own (`state_<tag>.pt`)."""
-        if path.endswith((".pkl", ".pkl.gz")):
-            raise NotImplementedError(
-                f"{path}: resuming from a JAX checkpoint (.pkl) is not ported "
-                f"yet (ROADMAP 1.6); resume from the port's own "
-                f"state_<tag>.pt")
-        blob = torch.load(path, map_location=self.env.device,
-                          weights_only=False)
-        p = self.ppo
-        p.ac.load_state_dict(blob["ac"])
-        p.opt.load_state_dict(blob["opt"])
-        p.adapt_opt.load_state_dict(blob["adapt_opt"])
-        p.lr, p.iteration = blob["lr"], blob["iteration"]
-        p.gen.set_state(blob["gen_state"])
+        blob = load_checkpoint(path, self.env.device)
+        self.ppo.load_state(blob)
         world = world_from_blob(blob["world"], self.env.device)
         # a run that adds or drops the actuator-model wrapper starts or
         # drops the wrapper's state
@@ -206,3 +202,55 @@ class Runner:
         def policy(obs_history):
             return model.act_student(obs_history)[0]
         return policy
+
+
+class RMARunner:
+    """The `--algo rma` loop of `scripts/train.py`: iterations of the RMA
+    learner, the JAX script's line every `log_freq` iterations, and the
+    exact-resume state `<run_dir>/rma_state.pt` at the end."""
+
+    def __init__(self, env, args: ppo_cse.PPOArgs = ppo_cse.PPOArgs(),
+                 run_dir: str = "runs/rma", seed: int = 0, log_freq: int = 10,
+                 resume: Optional[str] = None):
+        self.env, self.args = env, args
+        self.run_dir, self.log_freq = run_dir, log_freq
+        self.world = env.init_state(seed)
+        self.world, self.obs_dict = env.get_observations(self.world)
+        self.learner = RMA(env, args, seed=seed)
+        self.last_stats = None
+        os.makedirs(run_dir, exist_ok=True)
+        if resume:
+            self.load(resume)
+
+    def learn(self, iterations: int, log_fn=print):
+        """Returns the per-iteration wall seconds (device work finished at
+        the end of each)."""
+        ln, dev = self.learner, self.env.device
+        it0 = ln.iteration
+        walls = []
+        for it in range(it0, it0 + iterations):
+            t0 = time.perf_counter()
+            self.world, self.obs_dict, stats = ln.train_iteration(
+                self.world, self.obs_dict)
+            _sync(dev)
+            walls.append(time.perf_counter() - t0)
+            self.last_stats = stats
+            if it % self.log_freq == 0 or it == it0 + iterations - 1:
+                log_fn(f"it {it:6d} | rew {float(stats['mean_step_reward']):.4f}"
+                       f" | vloss {float(stats['value_loss']):.4f}"
+                       f" | adapt {float(stats['adaptation_loss']):.5f}")
+        self.save()
+        return walls
+
+    def save(self):
+        path = os.path.join(self.run_dir, "rma_state.pt")
+        torch.save({**self.learner.state(), "world": world_blob(self.world),
+                    "obs_dict": self.obs_dict, "cfg": self.env.cfg}, path)
+        return path
+
+    def load(self, path):
+        blob = load_checkpoint(path, self.env.device)
+        self.learner.load_state(blob)
+        self.world = world_from_blob(blob["world"], self.env.device)
+        self.obs_dict = blob["obs_dict"]
+        return self

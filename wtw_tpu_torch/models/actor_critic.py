@@ -42,6 +42,19 @@ def _mlp(sizes, activation: str) -> nn.Sequential:
     return nn.Sequential(*layers)
 
 
+def init_uniform_(module: nn.Module,
+                  generator: Optional[torch.Generator] = None):
+    """Every Linear's weight and bias uniform in +-1/sqrt(fan_in)
+    (torch.nn.Linear's default, `_init_mlp` of the JAX package)."""
+    with torch.no_grad():
+        for lin in module.modules():
+            if isinstance(lin, nn.Linear):
+                bound = 1.0 / math.sqrt(lin.in_features)
+                for p in (lin.weight, lin.bias):
+                    p.copy_(torch.rand(p.shape, generator=generator)
+                            * (2 * bound) - bound)
+
+
 class ActorCritic(nn.Module):
     def __init__(self, num_obs: int, num_privileged_obs: int,
                  num_obs_history: int, num_actions: int,
@@ -56,15 +69,7 @@ class ActorCritic(nn.Module):
         self.critic = _mlp((H + P,) + tuple(args.critic_hidden_dims) + (1,),
                            args.activation)
         self.std = nn.Parameter(args.init_noise_std * torch.ones(num_actions))
-        with torch.no_grad():
-            for lin in self.linears():
-                bound = 1.0 / math.sqrt(lin.in_features)
-                for p in (lin.weight, lin.bias):
-                    p.copy_(torch.rand(p.shape, generator=generator)
-                            * (2 * bound) - bound)
-
-    def linears(self):
-        return [m for m in self.modules() if isinstance(m, nn.Linear)]
+        init_uniform_(self, generator)
 
     def adaptation_module(self, obs_history):
         return self.adaptation(obs_history)

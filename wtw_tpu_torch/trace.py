@@ -1,12 +1,15 @@
 """Where one training iteration's time goes on the GPU.
 
     python -m wtw_tpu_torch.trace [--task go1_flat|...|b1_mob|parkour|terrain]
+                                  [--algo ppo|ppo_plus|ppornn|ppo_cse|rma]
                                   [--num-envs N] [--iterations 2]
 
 Builds the task at full width (a preset of `train.build`, such as go1_flat,
-go1_mob or b1_mob; or through `train_parkour.build` Go2 parkour with CaT on
-the full course, `parkour`, or Go2Terrain on its Stack-A map, `terrain`; N
-defaults to 4096 envs, a MoB preset's to its own count), runs one
+go1_mob or b1_mob, with the PPO learner or `--algo rma`; or through
+`train_parkour.build` Go2 parkour with CaT on the full course, `parkour`,
+or Go2Terrain on its Stack-A map, `terrain`, with CaT PPO or `--algo
+ppo_plus|ppornn`; N defaults to 4096 envs, a MoB preset's to its own
+count), runs one
 warm-up iteration, then times the rollout and the update of each further
 iteration separately (host clock, each ending in
 `torch.cuda.synchronize()`), and profiles the last one with
@@ -70,23 +73,33 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default="go1_flat",
                     choices=sorted(PRESETS) + ["parkour", "terrain"])
+    ap.add_argument("--algo", default=None,
+                    choices=["ppo", "ppo_plus", "ppornn", "ppo_cse", "rma"],
+                    help="the learner: ppo (default), ppo_plus or ppornn on "
+                         "parkour and terrain; ppo_cse (default) or rma on "
+                         "a preset")
     ap.add_argument("--num-envs", type=int, default=None)
     ap.add_argument("--iterations", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.task in ("parkour", "terrain"):
+    parkour = args.task in ("parkour", "terrain")
+    algo = args.algo or ("ppo" if parkour else "ppo_cse")
+    if (algo in ("ppo", "ppo_plus", "ppornn")) != parkour:
+        ap.error(f"--algo {algo} does not train --task {args.task}")
+    if parkour:
         from .train_parkour import build as build_parkour
         runner = build_parkour(args.num_envs or 4096, device="cuda",
                                seed=args.seed, run_dir=tempfile.mkdtemp(),
-                               save_interval=0, task=args.task)
+                               save_interval=0, task=args.task, algo=algo)
         env, learner = runner.env, runner.learner
         world, obs = runner.world, runner.obs_n
     else:
         from .train import build
         n = args.num_envs or (None if args.task.endswith("_mob") else 4096)
         env, runner = build(args.task, n, device="cuda", seed=args.seed,
-                            run_dir=tempfile.mkdtemp(), save_interval=0)
-        learner = runner.ppo
+                            run_dir=tempfile.mkdtemp(), save_interval=0,
+                            algo=algo)
+        learner = runner.learner if algo == "rma" else runner.ppo
         world, obs = runner.world, runner.obs_dict
 
     def iteration():
@@ -123,7 +136,7 @@ def main(argv=None):
     gather_us, gather_calls = _range_device_us(prof, GATHER_RANGE)
     busy_s = sum(us for us, _, _ in by_name) / 1e6
     name = torch.cuda.get_device_name(0)
-    print(json.dumps({"device": name, "task": args.task,
+    print(json.dumps({"device": name, "task": args.task, "algo": algo,
                       "num_envs": env.num_envs,
                       "rollout_s": [r for r, _ in split],
                       "update_s": [u for _, u in split]}))

@@ -3,11 +3,16 @@ counterpart of `scripts/train.py`):
 
     python -m wtw_tpu_torch.train --preset go1_flat --num-envs 4096 --iterations 100
     python -m wtw_tpu_torch.train --preset b1_mob --iterations 100
+    python -m wtw_tpu_torch.train --algo rma --iterations 100
+    python -m wtw_tpu_torch.train --pbt 4 --iterations 100
 
 Every preset of `config.PRESETS` trains: go1, go2 and b1 on flat ground or
 with the gait-conditioned MoB recipe on the Stack-A map, and the
-mini-cheetah on flat ground. Runs on the CUDA device unless `--device cpu`
-is given. `--resume` takes the port's own `state_<tag>.pt`; a JAX `.pkl`
+mini-cheetah on flat ground. `--algo rma` trains the teacher-student RMA
+learner (`<run-dir>/rma_state.pt`), `--pbt N` a population of N PPO
+learners (`<run-dir>/pbt_state.pt`). Runs on the CUDA device unless
+`--device cpu` is given. `--resume` takes the port's own checkpoint of the
+same kind (`state_<tag>.pt`, `rma_state.pt`, `pbt_state.pt`); a JAX `.pkl`
 raises NotImplementedError (ROADMAP 1.6).
 """
 from __future__ import annotations
@@ -23,16 +28,21 @@ from . import resolve_device
 
 def build(preset: str, num_envs=None, overrides=(), device=None, seed=0,
           run_dir=None, log_freq=10, save_interval=400, control=None,
-          actuator_model_wrapper=False, resume=None):
-    """(env, Runner) for a preset; `overrides` are `section.field=value`
+          actuator_model_wrapper=False, resume=None, algo="ppo_cse", pbt=0,
+          pbt_args=None):
+    """(env, runner) for a preset; `overrides` are `section.field=value`
     strings routed like scripts/train.py: `ppo.*` to PPOArgs, `runner.*` to
     RunnerArgs, `ac.*` to ACArgs, the rest to the Cfg tree. `control`
     overrides the control type ("P" or "actuator_net"),
     `actuator_model_wrapper` wraps the env in `ActuatorModelWrapper`, and
-    `resume` is a checkpoint of the port's own (`state_<tag>.pt`) to
-    continue from."""
+    `resume` is a checkpoint of the port's own to continue from. The
+    runner is dispatched as scripts/train.py does: `pbt` > 0 gives a
+    `learn.pbt.Population` of that many members (`pbt_args`, a PBTArgs,
+    sets the rest), else `algo="rma"` an `RMARunner`, else the PPO
+    `Runner`; each has `learn(iterations, log_fn)`."""
     from .envs import make_legged_env
     from .learn import PPOArgs, Runner, RunnerArgs
+    from .learn.runner import RMARunner
     from .models.actor_critic import ACArgs
 
     dev = resolve_device(device)
@@ -52,17 +62,28 @@ def build(preset: str, num_envs=None, overrides=(), device=None, seed=0,
         ("ppo.", "runner.", "ac."))])
     ppo_args = C.apply_overrides(PPOArgs(), pick("ppo."))
     ac_args = C.apply_overrides(ACArgs(), pick("ac."))
+    run_dir = run_dir or f"runs/{preset}/seed{seed}"
     runner_args = C.apply_overrides(
-        RunnerArgs(run_dir=run_dir or f"runs/{preset}/seed{seed}",
-                   log_freq=log_freq, save_interval=save_interval,
-                   resume=resume is not None, resume_path=resume),
-        pick("runner."))
+        RunnerArgs(run_dir=run_dir, log_freq=log_freq,
+                   save_interval=save_interval, resume=resume is not None,
+                   resume_path=resume), pick("runner."))
     env = make_legged_env(cfg, device=dev, seed=seed)
     if actuator_model_wrapper:
         from .envs.wrappers import ActuatorModelWrapper
         env = ActuatorModelWrapper(env)
-    runner = Runner(env, ppo_args, ac_args=ac_args, runner_args=runner_args,
-                    seed=seed)
+    if pbt:
+        from .learn.pbt import PBTArgs, Population
+        pargs = dataclasses.replace(pbt_args or PBTArgs(), population=pbt)
+        runner = Population(env, ppo_args, pargs, seed=seed, run_dir=run_dir,
+                            log_freq=runner_args.log_freq)
+        if resume:
+            runner.load(resume)
+    elif algo == "rma":
+        runner = RMARunner(env, ppo_args, run_dir=run_dir, seed=seed,
+                           log_freq=runner_args.log_freq, resume=resume)
+    else:
+        runner = Runner(env, ppo_args, ac_args=ac_args,
+                        runner_args=runner_args, seed=seed)
     return env, runner
 
 
@@ -87,15 +108,22 @@ def main(argv=None):
                     help="torch device (default: cuda)")
     ap.add_argument("--set", action="append", default=[], metavar="K=V",
                     help="config override, e.g. --set ppo.learning_rate=5e-4")
+    ap.add_argument("--algo", default="ppo_cse", choices=["ppo_cse", "rma"],
+                    help="rma = the reference's go1_gym_learn/ppo/ "
+                         "teacher-student RMA variant (env-factor encoder)")
+    ap.add_argument("--pbt", type=int, default=0, metavar="N",
+                    help="population-based training with N members")
     args = ap.parse_args(argv)
     env, runner = build(args.preset, args.num_envs, args.set, args.device,
                         args.seed, args.run_dir, args.log_freq,
                         args.save_interval, control=args.control,
                         actuator_model_wrapper=args.actuator_model_wrapper,
-                        resume=args.resume)
+                        resume=args.resume, algo=args.algo, pbt=args.pbt)
+    run_dir = args.run_dir or f"runs/{args.preset}/seed{args.seed}"
     print(f"preset={args.preset} robot={env.cfg.asset.robot} "
-          f"envs={env.num_envs} obs={env.num_obs} device={env.device} -> "
-          f"{runner.runner_args.run_dir}")
+          f"envs={env.num_envs} obs={env.num_obs} algo={args.algo}"
+          f"{f' pbt={args.pbt}' if args.pbt else ''} device={env.device} "
+          f"-> {run_dir}")
     runner.learn(args.iterations)
 
 

@@ -6,15 +6,19 @@ train=SoloTerrainPPO):
     python -m wtw_tpu_torch.train_parkour --num-envs 4096 --iterations 8000
     python -m wtw_tpu_torch.train_parkour --terrain jump --easy-mode
     python -m wtw_tpu_torch.train_parkour --task terrain [--reward-mode full]
+    python -m wtw_tpu_torch.train_parkour --algo ppo_plus|ppornn
 
 `--task terrain` is Go2Terrain: the Stack-A rough-terrain map, the fixed
 trot clock (observed), the Go2 actuator net; CaT with the tracking reward
-unless `--reward-mode full`. Runs on the CUDA device unless `--device cpu`
-is given. Writes `<run-dir>/metrics.csv` with the JAX script's columns
-(per-track-type `lvl_*` / `cross_*` included) and exact-resume checkpoints
-`<run-dir>/state_<tag>.pt` (`--resume` takes one of those). Options of the
-JAX script this port does not cover yet raise NotImplementedError: `--algo
-ppo_plus|ppornn` (ROADMAP 1.5) and `--resume` of a JAX `.pkl` (ROADMAP
+unless `--reward-mode full`. `--algo ppo_plus` adds the Q head and the
+zeroth-order action improvement, `--algo ppornn` the GRU memories; either
+combines with both tasks. Runs on the CUDA device unless `--device cpu` is
+given. Writes `<run-dir>/metrics.csv` with the JAX script's columns
+(per-track-type `lvl_*` / `cross_*` included; `--algo ppo_plus|ppornn`
+write what the JAX script writes for them: a terrain level and episode
+length of 0.0 and no `cross_*`, `ep_*` or `cstr_*` columns) and
+exact-resume checkpoints `<run-dir>/state_<tag>.pt` (`--resume` takes one
+of those). A JAX `.pkl` to `--resume` raises NotImplementedError (ROADMAP
 1.6).
 """
 from __future__ import annotations
@@ -137,8 +141,11 @@ class ParkourRunner:
         return walls
 
     def _row(self, it, stats, steps_per_s, wall_s):
-        """One CSV row (scripts/train_parkour.py:215-258)."""
-        f = lambda k: float(stats[k])
+        """One CSV row (scripts/train_parkour.py:215-258). The PPO+ and
+        PPO-RNN learners report no terrain level, episode length,
+        crossings or episode sums: 0.0 for the first two and no columns
+        for the others, as the JAX script writes."""
+        f = lambda k: float(stats.get(k, 0.0))
         row = {"iteration": it, "steps_per_s": steps_per_s, "wall_s": wall_s,
                "mean_step_reward": f("mean_step_reward"),
                "terrain_level": f("terrain_level_mean"),
@@ -148,19 +155,20 @@ class ParkourRunner:
         if len(self.kind_cols) > 1:
             lvl = self.world.env.terrain_level.cpu().numpy()
             typ = self.world.env.terrain_type.cpu().numpy()
-            cross_t = stats["crossings_by_type"].cpu().numpy()
-            dones_t = stats["dones_by_type"].cpu().numpy()
             for kind, cols in sorted(self.kind_cols.items()):
                 m = np.isin(typ, cols)
                 row[f"lvl_{kind}"] = float(lvl[m].mean()) if m.any() else -1.0
-                d = float(dones_t[cols].sum())
-                row[f"cross_{kind}"] = (float(cross_t[cols].sum()) / d
-                                        if d else 0.0)
-        ep = stats["episode_sums"].cpu().numpy()
-        row["ep_rew_lin_vel"] = float(ep[0])
-        row["ep_rew_ang_vel"] = float(ep[1])
-        for i, name in enumerate(self.env.cstr_names):
-            row[f"cstr_{name}"] = float(ep[2 + i])
+                if "crossings_by_type" in stats:
+                    d = float(stats["dones_by_type"][cols].sum())
+                    row[f"cross_{kind}"] = (
+                        float(stats["crossings_by_type"][cols].sum()) / d
+                        if d else 0.0)
+        if "episode_sums" in stats:
+            ep = stats["episode_sums"].cpu().numpy()
+            row["ep_rew_lin_vel"] = float(ep[0])
+            row["ep_rew_ang_vel"] = float(ep[1])
+            for i, name in enumerate(self.env.cstr_names):
+                row[f"cstr_{name}"] = float(ep[2 + i])
         return row
 
     def _write_csv(self, row):
@@ -181,17 +189,14 @@ class ParkourRunner:
             w.writerow(row)
 
     def save(self, tag):
-        """Exact-resume checkpoint: learner, optimizer, normalizers, env
-        world and both generators."""
+        """Exact-resume checkpoint: learner (optimizer, normalizers, the Q
+        head or the GRU hiddens included), env world and both
+        generators."""
         ln, w = self.learner, self.world
         path = os.path.join(self.run_dir, f"state_{tag}.pt")
         env_state = dataclasses.asdict(w.env)
         torch.save({
-            "agent": ln.agent.state_dict(), "opt": ln.opt.state_dict(),
-            "obs_rms": dataclasses.asdict(ln.obs_rms),
-            "value_rms": dataclasses.asdict(ln.value_rms),
-            "iteration": ln.iteration, "gen_state": ln.gen.get_state(),
-            "next_done": ln.next_done, "next_true_done": ln.next_true_done,
+            **ln.state(),
             "world": {"env": env_state, "cat": w.cat.running_max,
                       "soft_p_progress": w.soft_p_progress,
                       "hist_obs": w.hist_obs, "common_step": w.common_step,
@@ -202,19 +207,11 @@ class ParkourRunner:
     def load(self, path):
         from .envs.constraints import CaTState
         from .envs.parkour_env import ParkourEnvState, ParkourWorld
-        from .learn.cat_ppo import RMSState
+        from .learn.runner import load_checkpoint
         from .physics import PhysicsState
         dev = self.env.device
-        blob = torch.load(path, map_location=dev, weights_only=False)
-        ln = self.learner
-        ln.agent.load_state_dict(blob["agent"])
-        ln.opt.load_state_dict(blob["opt"])
-        ln.obs_rms = RMSState(**blob["obs_rms"])
-        ln.value_rms = RMSState(**blob["value_rms"])
-        ln.iteration = blob["iteration"]
-        ln.gen.set_state(blob["gen_state"])
-        ln.next_done, ln.next_true_done = (blob["next_done"],
-                                           blob["next_true_done"])
+        blob = load_checkpoint(path, dev)
+        self.learner.load_state(blob)
         wb = blob["world"]
         env = dict(wb["env"])
         env["phys"] = PhysicsState(**env["phys"])
@@ -232,13 +229,16 @@ def build(num_envs=4096, overrides=(), device=None, seed=0, run_dir=None,
           horizon=24, iterations=8000, anneal_iterations=None,
           terrain="mixed", easy_mode=False, soft_start=False, std_floor=0.0,
           log_freq=10, save_interval=400, task="parkour",
-          reward_mode=None) -> ParkourRunner:
-    """The env, the CaT learner and the runner of `scripts/train_parkour.py`
-    for `--algo ppo`. `overrides` are `field=value` strings: `ppo.*` go to
-    CatPPOArgs, the rest to ParkourCfg (on the terrain task
-    `rough_terrain.*` sizes its map)."""
+          reward_mode=None, algo="ppo") -> ParkourRunner:
+    """The env, the learner and the runner of `scripts/train_parkour.py`:
+    `algo` "ppo" (CaT PPO), "ppo_plus" or "ppornn". `overrides` are
+    `field=value` strings: `ppo.*` go to the learner's args, the rest to
+    ParkourCfg (on the terrain task `rough_terrain.*` sizes its map). As in
+    the JAX script, `std_floor` reaches only "ppo"."""
     from .envs.parkour_env import ParkourCfg, ParkourEnv, rough_terrain_cfg
     from .learn.cat_ppo import CatPPO, CatPPOArgs
+    from .learn.cat_ppo_plus import CatPPOPlus, PPOPlusArgs
+    from .learn.cat_ppornn import CatPPORNN, RNNArgs
     from .models import load_robot
     from .terrain import ParkourTerrainCfg
 
@@ -266,12 +266,19 @@ def build(num_envs=4096, overrides=(), device=None, seed=0, run_dir=None,
         **extra)
     cfg = C.apply_overrides(cfg, [s for s in overrides
                                   if not s.startswith("ppo.")])
+    if algo == "ppo_plus":
+        learner_cls, args = CatPPOPlus, PPOPlusArgs(
+            num_steps=horizon, num_iterations=anneal)
+    elif algo == "ppornn":
+        learner_cls, args = CatPPORNN, RNNArgs(num_steps=horizon,
+                                               num_iterations=anneal)
+    else:
+        learner_cls, args = CatPPO, CatPPOArgs(
+            num_steps=horizon, num_iterations=anneal, std_floor=std_floor)
     args = C.apply_overrides(
-        CatPPOArgs(num_steps=horizon, num_iterations=anneal,
-                   std_floor=std_floor),
-        [s[len("ppo."):] for s in overrides if s.startswith("ppo.")])
+        args, [s[len("ppo."):] for s in overrides if s.startswith("ppo.")])
     env = ParkourEnv(cfg, load_robot(cfg.robot), seed=seed, device=dev)
-    learner = CatPPO(env, args, seed=seed)
+    learner = learner_cls(env, args, seed=seed)
     return ParkourRunner(env, learner,
                          run_dir or f"runs/parkour_{terrain}/seed{seed}",
                          seed=seed, log_freq=log_freq,
@@ -307,10 +314,6 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if args.algo != "ppo":
-        raise NotImplementedError(
-            f"--algo {args.algo} is not ported yet (ROADMAP 1.5: the Q head "
-            f"of ppo_plus, the GRU agent of ppornn)")
     if args.resume and not args.resume.endswith(".pt"):
         raise NotImplementedError(
             "--resume takes the port's own .pt checkpoints; a JAX .pkl "
@@ -320,12 +323,13 @@ def main(argv=None):
                    args.anneal_iterations, args.terrain, args.easy_mode,
                    args.soft_start, args.std_floor, args.log_freq,
                    args.save_interval, task=args.task,
-                   reward_mode=args.reward_mode)
+                   reward_mode=args.reward_mode, algo=args.algo)
     if args.resume:
         runner.load(args.resume)
     env = runner.env
-    print(f"{args.task} terrain={args.terrain} envs={env.num_envs} "
-          f"obs={env.num_obs} device={env.device} -> {runner.run_dir}")
+    print(f"{args.task} terrain={args.terrain} algo={args.algo} "
+          f"envs={env.num_envs} obs={env.num_obs} device={env.device} -> "
+          f"{runner.run_dir}")
     runner.learn(args.iterations)
 
 
