@@ -78,28 +78,60 @@ Phases, each printing one JSON line with its seconds:
 20. pbt_training: `train --pbt 2` on go1_flat, 2 members of 4096 envs, an
    exploit every 2 iterations, 2 measured iterations ending with one: 384
    launches of each kernel, and the bottom member holding its source's
-   weights with its lr moved by a factor in [0.8, 1.25].
+   weights with its lr moved by a factor in [0.8, 1.25];
+21. kernel_a_multi, kernel_b_multi: both kernels' mixed-robot path (the
+   per-env robot index through the slot table) on go1, go2, b1 and the
+   mini-cheetah interleaved (arange % 4) at 4096 envs, from random states
+   near each robot's standing pose, against the plain versions on the
+   per-env model under the same bars, kernel B on flat and rough ground,
+   with the device ms and bound beside go1's single-robot kernel above;
+   kernel_a_multi_train, kernel_b_multi_train: the same on train_multi's
+   go1/go2/b1 (51 spheres, runs padded with empty slots, which the phase
+   requires);
+22. multi_pure_go1: every env go1 through the mixed path of a [go1, b1]
+   stack, 100 substeps from standing with contacts: bit-identical to the
+   single-robot path on the same inputs;
+23. multi_rollout: go1/go2/b1/mini-cheetah interleaved at 4096 envs, 100
+   substeps from standing under each robot's own preset PD gains: finite,
+   and each robot's base height inside (0.4 h, 1.1 h) of its own standing
+   height h;
+24. multi_training: `train_multi --robots go1,go2,b1` at 4096 envs, actor
+   and critic 512-256-128, adaptation 256-128, for 1 warm-up and 2
+   measured iterations: exactly 2 x (24 + 1) x 4 = 200 launches of each
+   kernel (the extra policy step is the per-robot reward's), finite
+   losses, and every `rew_<robot>` finite and non-zero;
+25. kernel_b_training_states: kernel B on the inputs of its last call in
+   go1_flat's and in multi_training's measured iterations: the mixed case
+   against its plain version at the bars and bit-repeatable, kernel A
+   relaunched on its states giving the training launch's bits, each
+   robot's envs given bit for bit what the single-robot kernel gives them
+   on the model the mixed launch staged, and its device time taken apart (no empty slots, columns sorted by robot, each
+   robot alone through the single-robot kernel on its own and on its
+   padded model) beside go1_flat's, with the touching spheres of each.
 
 Every training phase reports env steps/s, `max_memory_allocated` and its
-finite losses. With `--kernels` it runs phases 1-5, 8-9, 12 and 14 only
-(14 where the checkout ships the B1 and mini-cheetah specs) and prints no
-result line. This is how two versions of the kernels are compared in one call:
+finite losses. With `--kernels` it runs phases 1-5, 8-9, 12, 14 and 21
+only (14 where the checkout ships the B1 and mini-cheetah specs, 21 where
+its kernels take a per-env model) and prints no result line. This is how two versions of the kernels are compared in one call:
 copy this file into the other checkout and run it there with
 `--kernels`, then here, on the same cases (an older checkout reports no
 launch shape).
 
 Every kernel case also launches the kernel twice on the same inputs and
-fails unless the outputs are bit-identical, and reports three times: the
+fails unless the outputs are bit-identical (the single-robot cases print
+the sha256 of their outputs, `output_sha256`, to compare two checkouts'
+bits), and reports three times: the
 device time per launch (`device_ms`: 20 launches captured in a CUDA graph
 and replayed between CUDA events), the time per wrapper call (`call_ms`:
 CUDA events around 20 back-to-back calls, the wrapper's host work
 included) and the plain version's (`plain_ms`). In the kernels line `ms`
 and the per-case times (`kernel_ms`, `ceiling_ms`, `go1_ms`, `flat_ms`,
 `rough_ms`, `go2_no_ceiling_ms`, `ragged_4000_ms`, `edges_ms`, `b1_ms`,
-`b1_flat_ms`, `mini_cheetah_rough_ms`, ...) are device times per launch;
+`b1_flat_ms`, `mini_cheetah_rough_ms`, `multi_ms`, `multi_rough_ms`, ...)
+are device times per launch;
 before the kernels gave each env a team of lanes they were the
 events-over-calls times that are now `call_ms`. The line's `launches` is
-each kernel's count in the newest slice's path (ppornn training), and
+each kernel's count in the newest slice's path (multi training), and
 `launches_by_path` holds the counts of every training phase.
 
 Then the kernels line, the nvidia-smi line, and the result line. Exits
@@ -190,6 +222,16 @@ def check_deterministic(fn, what):
         raise AssertionError(f"{what}: two launches on the same inputs "
                              f"differ")
     return True
+
+
+def digest(*tensors) -> str:
+    """sha256 of the tensors' bytes, so two checkouts' kernels can be held
+    to the same bits on the same inputs (`--kernels` in each)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def timings(fn, plain, plain_iters=20):
@@ -294,7 +336,7 @@ def phase_kernel_a(model, dev, n=B):
     n_bytes = 4 * (fk_in.numel() + fb.numel() + fp.numel())
     bms, by = bound_ms(n_bytes, fk_flops(model) * n)
     return dict(num_envs=n, max_abs_err=err, tolerance=FK_TOL,
-                deterministic=True,
+                deterministic=True, output_sha256=digest(fb, fp),
                 **timings(call, lambda: K.fk_plain(model, fk_in)),
                 bound_ms=bms, bound_by=by, bytes=n_bytes)
 
@@ -330,7 +372,7 @@ def phase_kernel_b(model, dev, n=B, terrains=("flat", "rough")):
         bms, by = bound_ms(n_bytes, dynamics_flops(model, active) * n)
         out[terrain] = dict(
             num_envs=n, max_abs_err=max(errs.values()), errors=errs,
-            deterministic=True,
+            deterministic=True, output_sha256=digest(got),
             **timings(call, lambda: K.dynamics_plain(*args), plain_iters=5),
             bound_ms=bms, bound_by=by, bytes=n_bytes,
             touching_spheres_per_env=active)
@@ -520,15 +562,8 @@ def _dyn_case(model, dev, rng, n=B):
 
 def _ground_touching(model, hf, hc, duv, fk_p) -> float:
     """Spheres per env whose depth along the ground normal is > 0."""
-    (h00, h10, h01, h11), (du, dv) = hc, duv
-    h = (h00 * (1 - du) * (1 - dv) + h10 * du * (1 - dv)
-         + h01 * (1 - du) * dv + h11 * du * dv)
-    inv_s = 1.0 / hf.horizontal_scale
-    dhdx = ((h10 - h00) * (1 - dv) + (h11 - h01) * dv) * inv_s
-    dhdy = ((h01 - h00) * (1 - du) + (h11 - h10) * du) * inv_s
-    depth = ((h - fk_p[2]) * torch.rsqrt(dhdx ** 2 + dhdy ** 2 + 1)
-             + model.sph_radius[:, None])
-    return float((depth > 0).float().sum(0).mean())
+    return float(_touching(model.sph_radius[:, None],
+                           1.0 / hf.horizontal_scale, hc, duv, fk_p).mean())
 
 
 def _compare_dyn(K, model, got, ref, what, tol=DYN_TOL):
@@ -671,16 +706,18 @@ def phase_parkour_rollout(model, dev, substeps=100):
 class CeilingWatch:
     """Counts the calls of kernel B's wrapper that pass a ceiling
     (`ceil_h`), by wrapping `kernels.dynamics`, which the physics entry
-    calls through the module."""
+    calls through the module, and keeps the last call's arguments (the
+    physics entry builds them anew for every call)."""
 
     def __init__(self):
         from wtw_tpu_torch.physics import kernels as K
-        self.K, self.real, self.calls = K, K.dynamics, 0
+        self.K, self.real, self.calls, self.last = K, K.dynamics, 0, None
 
     def __enter__(self):
         def watched(*args, ceil_h=None, **kw):
             if ceil_h is not None:
                 self.calls += 1
+            self.last = (args, dict(kw, ceil_h=ceil_h))
             return self.real(*args, ceil_h=ceil_h, **kw)
         self.K.dynamics = watched
         return self
@@ -689,10 +726,12 @@ class CeilingWatch:
         self.K.dynamics = self.real
 
 
-def _measure(runner_learn, dev, iterations, warmup, num_envs, num_steps):
+def _measure(runner_learn, dev, iterations, warmup, num_envs, num_steps,
+             keep=None):
     """Warm-up, then counts to 0, the measured iterations, and the counts:
     -> (warm-up walls, walls, launches, calls of kernel B with a ceiling,
-    env steps/s, peak memory)."""
+    env steps/s, peak memory). `keep` (a dict) receives the arguments of
+    kernel B's last call in the measured iterations under "dynamics"."""
     from wtw_tpu_torch.physics import kernels as K
     quiet = lambda *a: None
     warm = runner_learn(warmup, log_fn=quiet) if warmup else []
@@ -703,6 +742,8 @@ def _measure(runner_learn, dev, iterations, warmup, num_envs, num_steps):
     with CeilingWatch() as watch:
         walls = runner_learn(iterations, log_fn=quiet)
     launches = {k.name: k.launches for k in K.KERNELS}
+    if keep is not None:
+        keep["dynamics"] = watch.last
     return dict(warmup_wall_s=warm, iteration_wall_s=walls,
                 env_steps_per_s=[num_steps * num_envs / w for w in walls],
                 max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
@@ -844,13 +885,14 @@ def _check_launches(name, rec):
 
 
 def phase_preset_training(preset, device="cuda", num_envs=None, iterations=3,
-                          warmup=1, overrides=(), algo="ppo_cse"):
+                          warmup=1, overrides=(), algo="ppo_cse", keep=None):
     """A preset of `wtw_tpu_torch.train` through the port's entry points
     (`train.build` and the runner's `learn`: `Runner`, or `RMARunner` with
     `algo="rma"`) at `num_envs`, or the preset's own count. On a Stack-A
     map, the field on the card must equal a second host build of the map
     (whose seconds it reports). Counts are set to 0 after the warm-up, just
-    before the measured iterations, and read just after them."""
+    before the measured iterations, and read just after them. `keep`: see
+    `_measure`."""
     from wtw_tpu_torch.terrain import build_terrain
     from wtw_tpu_torch.train import build
     dev = torch.device(device)
@@ -872,7 +914,7 @@ def phase_preset_training(preset, device="cuda", num_envs=None, iterations=3,
                 raise AssertionError(f"{preset}: the heightfield on the "
                                      f"device is not the host's map")
         rec = _measure(runner.learn, dev, iterations, warmup, env.num_envs,
-                       runner.args.num_steps_per_env)
+                       runner.args.num_steps_per_env, keep)
         stats = runner.last_stats
         losses = _finite({k: float(stats[k]) for k in (
             "loss", "surrogate_loss", "value_loss", "adaptation_loss",
@@ -949,6 +991,461 @@ def phase_pbt_training(device="cuda", num_envs=B, population=2, iterations=2,
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
+MIX = ("go1", "go2", "b1", "mini_cheetah")
+# train_multi's default mix, as multi_training trains it: 51 spheres, runs
+# of 1366/1365/1365 envs padded to 1376 slots each, so blocks hold empty
+# slots
+TRAIN_MIX = ("go1", "go2", "b1")
+
+
+def _mixed_case(dev, robots=MIX, n=B, seed=SEED + 2):
+    """The per-env model of a stack of `robots` interleaved (arange % R)
+    at n envs, random states near each env's robot's standing pose and
+    height: (per-env model, states, torques, fk_in)."""
+    from wtw_tpu_torch.models import load_robot
+    from wtw_tpu_torch.models.multi import assign_robots, stack_models
+    from wtw_tpu_torch.physics import PhysicsState
+    stack = stack_models([load_robot(r, device=dev) for r in robots])
+    per_env, a = assign_robots(stack, n)
+    rng = np.random.RandomState(seed)
+    parts = [random_states(rng, n, dev, z=KERNEL_Z[r], q0=STAND_Q[r])
+             for r in robots]
+    pick = torch.as_tensor(a, device=dev)
+    st = PhysicsState(**{f.name: torch.stack(
+        [getattr(p, f.name) for p in parts])[pick, torch.arange(n, device=dev)]
+        for f in dataclasses.fields(PhysicsState)})
+    tau = torch.tensor(3.0 * rng.randn(n, 12).astype(np.float32), device=dev)
+    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q],
+                      1).T.contiguous()
+    return per_env, st, tau, fk_in
+
+
+def _mix_layout(per_env):
+    """Envs of each robot, and the slot table's slots and empty slots."""
+    from wtw_tpu_torch.physics import kernels as K
+    R = int(per_env.stack.static["mass"].shape[0])
+    slot_env, _ = K.slot_table(per_env.robot, R)
+    return dict(envs_per_robot=np.bincount(per_env.assignment,
+                                           minlength=R).tolist(),
+                spheres_padded_to=per_env.P, slots=slot_env.numel(),
+                empty_slots=int((slot_env < 0).sum()))
+
+
+def phase_kernel_a_multi(dev, n=B, robots=MIX):
+    """Kernel A on `robots` interleaved at n envs through the per-env
+    model (the slot table), against its plain version on the same model."""
+    from wtw_tpu_torch.models.multi import robot_of
+    from wtw_tpu_torch.physics import kernels as K
+    per_env, st, tau, fk_in = _mixed_case(dev, robots, n=n)
+    fb, fp = K.fk(per_env, fk_in)
+    rb, rp = K.fk_plain(per_env, fk_in)
+    torch.cuda.synchronize()
+    err = max(float((fb - rb).abs().max()), float((fp - rp).abs().max()))
+    if not err <= FK_TOL:
+        raise AssertionError(f"kernel A differs from its plain version on a "
+                             f"mixed batch of {robots} ({n} envs): {err} > "
+                             f"{FK_TOL}")
+    call = lambda: K.fk(per_env, fk_in)
+    check_deterministic(call, f"kernel A on a mixed batch of {robots}")
+    lay = _mix_layout(per_env)
+    n_bytes = 4 * (fk_in.numel() + fb.numel() + fp.numel() + n)
+    flops = sum(c * fk_flops(robot_of(per_env.stack, r))
+                for r, c in enumerate(lay["envs_per_robot"]))
+    bms, by = bound_ms(n_bytes, flops)
+    return dict(num_envs=n, robots=list(robots), **lay, max_abs_err=err,
+                tolerance=FK_TOL, deterministic=True,
+                **timings(call, lambda: K.fk_plain(per_env, fk_in)),
+                bound_ms=bms, bound_by=by, bytes=n_bytes)
+
+
+def _touching(radius, inv_s, hc, duv, fk_p):
+    """Spheres of each env whose depth along the ground normal is > 0
+    (padded spheres never touch): (B,)."""
+    (h00, h10, h01, h11), (du, dv) = hc, duv
+    h = (h00 * (1 - du) * (1 - dv) + h10 * du * (1 - dv)
+         + h01 * (1 - du) * dv + h11 * du * dv)
+    dhdx = ((h10 - h00) * (1 - dv) + (h11 - h01) * dv) * inv_s
+    dhdy = ((h01 - h00) * (1 - du) + (h11 - h10) * du) * inv_s
+    depth = ((h - fk_p[2]) * torch.rsqrt(dhdx ** 2 + dhdy ** 2 + 1)
+             + radius)
+    return (depth > 0).float().sum(0)
+
+
+def _touching_per_robot(per_env, inv_s, hc, duv, fk_p):
+    """Touching spheres an env, averaged over each robot's envs."""
+    count = _touching(per_env.sph_radius.T, inv_s, hc, duv, fk_p)
+    R = int(per_env.stack.static["mass"].shape[0])
+    return [float(count[per_env.robot == r].mean()) for r in range(R)]
+
+
+def _dyn_bound(per_env, args, got, active):
+    """Bound of one kernel B launch on a per-env model: its rows and the
+    robot index moved once, each robot's counted operations."""
+    from wtw_tpu_torch.models.multi import robot_of
+    n_bytes = 4 * (sum(a.numel() for a in args[2:8]) + got.numel()
+                   + got.shape[1])
+    counts = np.bincount(per_env.assignment, minlength=len(active))
+    flops = sum(int(c) * dynamics_flops(robot_of(per_env.stack, r), active[r])
+                for r, c in enumerate(counts))
+    return bound_ms(n_bytes, flops) + (n_bytes,)
+
+
+def phase_kernel_b_multi(dev, n=B, terrains=("flat", "rough"), robots=MIX):
+    """Kernel B on `robots` interleaved at n envs through the per-env model
+    (the slot table), against its plain version on the same model, on flat
+    and on rough ground."""
+    from wtw_tpu_torch.physics import (EngineParams, flat_heightfield,
+                                       make_heightfield)
+    from wtw_tpu_torch.physics import kernels as K
+    from wtw_tpu_torch.physics.batched import _hf_rows, pack_state_rows
+    params = EngineParams()
+    per_env, st, tau, fk_in = _mixed_case(dev, robots, n=n)
+    fk_b, fk_p = K.fk_plain(per_env, fk_in)
+    lin = lambda a, b: torch.linspace(a, b, n, device=dev)[None]
+    col = lambda v: torch.tensor(v, device=dev)[:, None].expand(3, n)
+    env = torch.cat([lin(0.3, 2.0), lin(0.0, 0.4), lin(-0.5, 2.0),
+                     col([0.01, -0.005, 0.002]), col([0.1, -0.2, 0.3])],
+                    0).contiguous()
+    srows = pack_state_rows(st, tau)
+    rough = (0.06 * np.random.RandomState(3).randn(80, 80)).astype(np.float32)
+    fields = {"flat": lambda: flat_heightfield(20.0, 0.5, device=dev),
+              "rough": lambda: make_heightfield(rough, 0.25, [-10.0, -10.0],
+                                                device=dev)}
+    lay = _mix_layout(per_env)
+    out = {}
+    for terrain in terrains:
+        hf = fields[terrain]()
+        hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+        args = (per_env, params, srows, fk_b, fk_p, hc.contiguous(),
+                duv.contiguous(), env, 1.0 / hf.horizontal_scale)
+        got = K.dynamics(*args)
+        ref = K.dynamics_plain(*args)
+        torch.cuda.synchronize()
+        what = f"on {terrain} ground (mixed batch of {robots}, {n} envs)"
+        errs = _compare_dyn(K, per_env, got, ref, what)
+        call = lambda: K.dynamics(*args)
+        check_deterministic(call, f"kernel B {what}")
+        active = _touching_per_robot(per_env, args[-1], hc, duv, fk_p)
+        if min(active) <= 0:
+            raise AssertionError(f"kernel B {what}: a robot with no touching "
+                                 f"sphere: {active}")
+        bms, by, n_bytes = _dyn_bound(per_env, args, got, active)
+        out[terrain] = dict(
+            num_envs=n, robots=list(robots), **lay,
+            max_abs_err=max(errs.values()), errors=errs, deterministic=True,
+            **timings(call, lambda: K.dynamics_plain(*args), plain_iters=5),
+            bound_ms=bms, bound_by=by, bytes=n_bytes,
+            touching_spheres_per_env_by_robot=dict(zip(robots, active)))
+    return out
+
+
+def _columns(args, cols):
+    """Kernel B's arguments (model, params, rows..., inv_s) restricted to
+    the env columns `cols`, in that order."""
+    model, params, *rows, inv_s = args
+    return (model, params, *[r[..., cols].contiguous() for r in rows],
+            inv_s)
+
+
+def _position_bar(base_pos_rows) -> float:
+    """The bar of a position output: FK_TOL, or 2 fp32 ulps of the largest
+    coordinate (bases within 1 m) where those are larger. Training spreads
+    envs up to ~190 m from the origin (the env origins' grid), where one
+    ulp is 1.5e-5; the random cases sit within 1 m."""
+    far = float(base_pos_rows[:2].abs().max()) + 1.0
+    return max(FK_TOL, 2.0 * float(np.spacing(np.float32(far))))
+
+
+def _training_state_errors(K, args, what):
+    """Kernel A and kernel B against their plain versions on one training
+    call's inputs: positions under `_position_bar`, the rest under FK_TOL
+    and DYN_TOL."""
+    model, nb, nj = args[0], args[0].nb, args[0].nj
+    fk_in = args[2][:7 + nj].contiguous()
+    fb, fp = K.fk(model, fk_in)
+    rb, rp = K.fk_plain(model, fk_in)
+    got, ref = K.dynamics(*args), K.dynamics_plain(*args)
+    torch.cuda.synchronize()
+    pos_bar = _position_bar(fk_in)
+    d = (fb - rb).abs()
+    pos_rows = torch.cat([d[:nb * 3], d[nb * 7:nb * 7 + nj * 3]])
+    err_pos = max(float(pos_rows.max()), float((fp - rp).abs().max()))
+    err_rot = max(float(d[nb * 3:nb * 7].max()),
+                  float(d[nb * 7 + nj * 3:].max()))
+    if not (err_pos <= pos_bar and err_rot <= FK_TOL):
+        raise AssertionError(f"kernel A on {what}: positions {err_pos} "
+                             f"(bar {pos_bar}), rotations {err_rot}")
+    errs = _compare_dyn(K, model, got, ref, f"on {what}", dict(
+        DYN_TOL, base_pos=pos_bar, foot_positions=pos_bar))
+    return dict(position_bar=pos_bar, kernel_a_position_err=err_pos,
+                kernel_a_rotation_err=err_rot,
+                kernel_a_max_abs_err=max(err_pos, err_rot),
+                max_abs_err=max(errs.values()), errors=errs)
+
+
+def phase_kernel_b_training_states(dev, go1_call, multi_call):
+    """Kernel B on the inputs of its last call in go1_flat's and in
+    train_multi's measured iterations (the training phases keep them):
+    the mixed case against its plain version at the bars, kernel A
+    relaunched on its states giving the training launch's bits, each
+    robot's envs given bit for bit what the single-robot kernel gives them
+    on that robot's padded model, and the mixed case's device time taken
+    apart: without the empty slots (1360 envs of each robot, interleaved),
+    with each robot's columns neighbouring (the same envs sorted by
+    robot), and each robot's envs alone through the single-robot kernel
+    (tiled to 4096 columns), on its own model and on its sphere-padded
+    one, beside go1_flat's; with the touching spheres an env of each."""
+    from wtw_tpu_torch.models import load_robot
+    from wtw_tpu_torch.models.multi import robot_of
+    from wtw_tpu_torch.physics import kernels as K
+    (m1, *rest1), kw1 = go1_call
+    (per_env, *rest), kw = multi_call
+    if kw1.get("ceil_h") is not None or kw.get("ceil_h") is not None:
+        raise AssertionError("flat-ground training passed a ceiling")
+    go1_args, args = (m1, *rest1), (per_env, *rest)
+    n, nj = args[2].shape[1], per_env.nj
+    # kernel A on the training states gives the training launch's bits
+    fb, fp = K.fk(per_env, args[2][:7 + nj].contiguous())
+    torch.cuda.synchronize()
+    if not (torch.equal(fb, args[3]) and torch.equal(fp, args[4])):
+        raise AssertionError("kernel A on train_multi's states differs from "
+                             "its launch in training")
+    # both kernels against their plain versions on each phase's states
+    checks = {}
+    for tag, xs in (("multi", args), ("go1_flat", go1_args)):
+        checks[tag] = _training_state_errors(K, xs, f"{tag}'s states")
+    check_deterministic(lambda: K.dynamics(*args),
+                        "kernel B on train_multi's states")
+    got = K.dynamics(*args)
+    stack, a = per_env.stack, per_env.assignment
+    names = [robot_key(robot_of(stack, r))
+             for r in range(int(stack.static["mass"].shape[0]))]
+    active = _touching_per_robot(per_env, args[-1], *args[5:7], args[4])
+    bms, by, n_bytes = _dyn_bound(per_env, args, got, active)
+    go1_active = float(_touching(m1.sph_radius[:, None], go1_args[-1],
+                                 *go1_args[5:7], go1_args[4]).mean())
+    n1 = go1_args[2].shape[1]
+    go1_bms, _ = bound_ms(
+        4 * (sum(t.numel() for t in go1_args[2:8]) + got.shape[0] * n1),
+        dynamics_flops(m1, go1_active) * n1)
+    ms = lambda xs: device_ms(lambda: K.dynamics(*xs))
+    # the mixed path without empty slots, then with neighbouring columns
+    per_run = min(np.bincount(a)) // K.SLOT_GROUP * K.SLOT_GROUP
+    keep = np.sort(np.concatenate([np.flatnonzero(a == r)[:per_run]
+                                   for r in range(len(names))]))
+    dense = torch.as_tensor(keep, device=dev)
+    by_robot = torch.as_tensor(keep[np.argsort(a[keep], kind="stable")],
+                               device=dev)
+    parts = {}
+    for key, cols in (("no_empty_slots", dense), ("sorted_by_robot",
+                                                  by_robot)):
+        sub = stack.take(a[cols.cpu().numpy()])
+        parts[key] = dict(num_envs=len(keep),
+                          **{k: v for k, v in _mix_layout(sub).items()
+                             if k in ("slots", "empty_slots")},
+                          device_ms=ms(_columns((sub,) + args[1:], cols)))
+    # each robot alone: its envs through the single kernel on the model the
+    # mixed launch staged for them give that launch's bits; then tiled to n
+    # columns and timed
+    alone = {}
+    for r, name in enumerate(names):
+        idx = np.flatnonzero(a == r)
+        padded = robot_of(stack, r)
+        mine = torch.as_tensor(idx, device=dev)
+        if not torch.equal(K.dynamics(*_columns((padded,) + args[1:], mine)),
+                           got[:, mine]):
+            raise AssertionError(f"kernel B on train_multi's states: the "
+                                 f"mixed launch's {name} envs differ from "
+                                 f"the single-robot launch on its model")
+        cols = torch.as_tensor(idx[np.arange(n) % len(idx)], device=dev)
+        own = load_robot(name, device=dev)
+        pa = _columns((padded,) + args[1:], cols)
+        oa = (own, pa[1], pa[2], pa[3], pa[4][:, :own.P].contiguous(),
+              pa[5][:, :own.P].contiguous(), pa[6][:, :own.P].contiguous(),
+              pa[7], pa[8])
+        alone[name] = dict(own_spheres=own.P, own_device_ms=ms(oa),
+                           padded_device_ms=ms(pa),
+                           touching_spheres_per_env=active[r])
+    return dict(
+        num_envs=n, robots=names, **_mix_layout(per_env),
+        kernel_a_same_bits_as_training=True,
+        same_bits_as_single_robot_launches=True,
+        kernel_a_max_abs_err=checks["multi"]["kernel_a_max_abs_err"],
+        max_abs_err=checks["multi"]["max_abs_err"], deterministic=True,
+        against_plain=checks,
+        **timings(lambda: K.dynamics(*args),
+                  lambda: K.dynamics_plain(*args), plain_iters=5),
+        bound_ms=bms, bound_by=by, bytes=n_bytes,
+        touching_spheres_per_env_by_robot=dict(zip(names, active)),
+        go1_flat=dict(num_envs=n1, device_ms=ms(go1_args),
+                      bound_ms=go1_bms, touching_spheres_per_env=go1_active),
+        **parts, alone=alone)
+
+
+def _standing_start(models, dev, n):
+    """Per-env PD gains, default pose and standing height of each robot's
+    flat preset (go1's for go1 and go2's for go2), and the (n,) robot
+    index arange % R."""
+    from wtw_tpu_torch import config as C
+    from wtw_tpu_torch.models.robot import default_joint_angles
+    a = torch.arange(n, device=dev) % len(models)
+    q0s, kps, kds, hs = [], [], [], []
+    for key, m in models.items():
+        ctrl = C.PRESETS[f"{key}_flat"]()
+        q0 = default_joint_angles(m, dict(ctrl.init_state.default_joint_angles))
+        q0s.append(q0)
+        kps.append(ctrl.control.stiffness)
+        kds.append(ctrl.control.damping)
+        hs.append(standing_height(m, q0))
+    t = lambda x: torch.tensor(x, device=dev)
+    return (a, torch.stack(q0s)[a], t(kps)[a][:, None], t(kds)[a][:, None],
+            t(hs)[a], hs)
+
+
+def _rollout(model, hf, s, q0, kp, kd, substeps):
+    from wtw_tpu_torch.physics import EngineParams, physics_step_batched
+    n = q0.shape[0]
+    dev = q0.device
+    ones, zeros = torch.ones(n, device=dev), torch.zeros(n, device=dev)
+    info = None
+    for _ in range(substeps):
+        tau = kp * (q0 - s.joint_q) - kd * s.joint_qd
+        s, info = physics_step_batched(model, hf, EngineParams(), s, tau,
+                                       ones, zeros)
+    return s, info
+
+
+def _stand(q0, z, dev):
+    from wtw_tpu_torch.physics import PhysicsState
+    n = q0.shape[0]
+    pos = torch.zeros(n, 3, device=dev)
+    pos[:, 2] = z
+    return PhysicsState(
+        base_pos=pos,
+        base_quat=torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev).expand(n, 4),
+        base_lin_vel=torch.zeros(n, 3, device=dev),
+        base_ang_vel=torch.zeros(n, 3, device=dev), joint_q=q0.clone(),
+        joint_qd=torch.zeros(n, 12, device=dev))
+
+
+def phase_multi_pure_go1(dev, substeps=100):
+    """Every env go1 through the mixed path (a [go1, b1] stack, every env
+    assigned go1), 100 substeps from standing under go1's PD gains with
+    contacts: bit-identical to the single-robot kernel path on the same
+    inputs (the open fault of the JAX package on the TPU, BASELINE.md
+    "per-env model diverges at contact events")."""
+    from wtw_tpu_torch.models import load_robot
+    from wtw_tpu_torch.models.multi import stack_models
+    from wtw_tpu_torch.physics import flat_heightfield
+    from wtw_tpu_torch.physics import kernels as K
+    go1 = load_robot("go1", device=dev)
+    per_env = stack_models([go1, load_robot("b1", device=dev)]).take(
+        np.zeros(B, np.int32))
+    hf = flat_heightfield(20.0, 0.5, device=dev)
+    _, q0, kp, kd, h, _ = _standing_start({"go1": go1}, dev, B)
+    before = (K.FK.launches, K.DYNAMICS.launches)
+    a, ia = _rollout(go1, hf, _stand(q0, h, dev), q0, kp, kd, substeps)
+    b, ib = _rollout(per_env, hf, _stand(q0, h, dev), q0, kp, kd, substeps)
+    torch.cuda.synchronize()
+    launched = (K.FK.launches - before[0], K.DYNAMICS.launches - before[1])
+    fields = ("base_pos", "base_quat", "base_lin_vel", "base_ang_vel",
+              "joint_q", "joint_qd")
+    diff = {f: float((getattr(a, f) - getattr(b, f)).abs().max())
+            for f in fields}
+    same = all(torch.equal(getattr(a, f), getattr(b, f)) for f in fields) \
+        and torch.equal(ia.foot_forces, ib.foot_forces)
+    touching = float((ia.total_normal_force > 10.0).float().mean())
+    if not (same and touching > 0.99 and launched == (2 * substeps,
+                                                      2 * substeps)):
+        raise AssertionError(f"multi_pure_go1: bits differ {diff}, share of "
+                             f"envs in contact {touching}, launches "
+                             f"{launched}")
+    return dict(num_envs=B, substeps=substeps, bit_identical=True,
+                max_abs_diff=diff, envs_in_contact=touching,
+                launches=launched)
+
+
+def phase_multi_rollout(dev, substeps=100):
+    """go1/go2/b1/mini-cheetah interleaved at 4096 envs, 100 substeps from
+    standing under each robot's own preset PD gains through both kernels'
+    mixed path: finite, and each robot's base height inside (0.4 h, 1.1 h)
+    of its own standing height h (as rollout_b1)."""
+    from wtw_tpu_torch.models import load_robot
+    from wtw_tpu_torch.models.multi import assign_robots, stack_models
+    from wtw_tpu_torch.physics import flat_heightfield
+    from wtw_tpu_torch.physics import kernels as K
+    models = {r: load_robot(r, device=dev) for r in MIX}
+    per_env, _ = assign_robots(stack_models(list(models.values())), B)
+    a, q0, kp, kd, h, hs = _standing_start(models, dev, B)
+    hf = flat_heightfield(20.0, 0.5, device=dev)
+    before = (K.FK.launches, K.DYNAMICS.launches)
+    s, _ = _rollout(per_env, hf, _stand(q0, h, dev), q0, kp, kd, substeps)
+    torch.cuda.synchronize()
+    launched = (K.FK.launches - before[0], K.DYNAMICS.launches - before[1])
+    z = s.base_pos[:, 2]
+    finite = all(bool(torch.isfinite(getattr(s, f)).all()) for f in (
+        "base_pos", "base_quat", "base_lin_vel", "base_ang_vel", "joint_q",
+        "joint_qd"))
+    by_robot = {}
+    ok = finite and launched == (substeps, substeps)
+    for r, key in enumerate(MIX):
+        zr = z[a == r]
+        lo, hi = 0.4 * hs[r], 1.1 * hs[r]
+        by_robot[key] = dict(standing_height=hs[r], z_bounds=[lo, hi],
+                             z_min=float(zr.min()), z_max=float(zr.max()),
+                             z_mean_over_h=float(zr.mean()) / hs[r])
+        ok = ok and bool((zr > lo).all()) and bool((zr < hi).all())
+    if not ok:
+        raise AssertionError(f"multi roll-out failed: finite={finite} "
+                             f"{by_robot} launches={launched}")
+    return dict(num_envs=B, substeps=substeps, by_robot=by_robot,
+                launches=launched)
+
+
+def phase_multi_training(device="cuda", robots=TRAIN_MIX, num_envs=B,
+                         iterations=2, warmup=1, keep=None):
+    """`train_multi --robots go1,go2,b1` through the port's entry points
+    (`train_multi.build` and `MultiRunner.learn`) at full width (actor and
+    critic 512-256-128, adaptation 256-128): counts set to 0 after the
+    warm-up, just before the measured iterations, and read just after.
+    Each iteration is 24 policy steps and the per-robot reward step, 4
+    substeps each: 100 launches of each kernel. Every rew_<robot> must be
+    finite and non-zero. `keep`: see `_measure`."""
+    from wtw_tpu_torch.train_multi import build
+    dev = torch.device(device)
+    run_dir = tempfile.mkdtemp(prefix="wtw_chip_smoke_multi_")
+    try:
+        t0 = time.perf_counter()
+        env, runner = build(robots, num_envs, (), dev, seed=SEED,
+                            run_dir=run_dir, log_freq=1)
+        build_s = time.perf_counter() - t0
+        T = runner.args.num_steps_per_env
+        rec = _measure(runner.learn, dev, iterations, warmup, env.num_envs, T,
+                       keep)
+        stats = runner.last_stats
+        losses = _finite({k: float(stats[k]) for k in (
+            "loss", "surrogate_loss", "value_loss", "adaptation_loss",
+            "kl_mean")}, "multi training")
+        per_robot = dict(zip(robots, runner.last_per_robot.cpu().tolist()))
+        if not all(math.isfinite(v) and v != 0.0 for v in per_robot.values()):
+            raise AssertionError(f"multi training: a per-robot reward is not "
+                                 f"finite and non-zero: {per_robot}")
+        with open(os.path.join(run_dir, "metrics.csv")) as f:
+            columns = f.readline().strip().split(",")
+        return dict(
+            robots=list(robots), num_envs=env.num_envs,
+            envs_per_robot=[int((env.robot_assignment == r).sum())
+                            for r in range(len(robots))],
+            num_obs=env.num_obs, spheres_padded_to=env.model.P,
+            build_s=build_s, iterations=iterations, **rec, losses=losses,
+            rew_by_robot=per_robot, csv_columns=columns,
+            expected_launches_per_kernel=(
+                iterations * (T + 1) * env.cfg.control.decimation),
+            mean_step_reward=float(stats["mean_step_reward"]))
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
@@ -1006,6 +1503,14 @@ def main(argv=None) -> int:
         (f"{kind}_{key}", fn, m) for key, m in robots.items()
         for kind, fn in (("kernel_a", phase_kernel_a),
                          ("kernel_b", phase_kernel_b))]
+    # an older checkout's kernels (timed with --kernels) may take no robot
+    # index; each mixed case on four robots and on train_multi's three
+    multi_kernel_phases = [
+        (f"{kind}{tag}", fn, robots_) for tag, robots_ in (
+            ("", MIX), ("_train", TRAIN_MIX))
+        for kind, fn in (("kernel_a_multi", phase_kernel_a_multi),
+                         ("kernel_b_multi", phase_kernel_b_multi))
+    ] if hasattr(K, "slot_table") else []
     results = {}
     if args.kernels:
         for phase, fn, m in [("kernel_a", phase_kernel_a, model),
@@ -1017,6 +1522,10 @@ def main(argv=None) -> int:
                              ] + new_kernel_phases:
             t0 = time.perf_counter()
             emit({"phase": phase, **fn(m, dev),
+                  "seconds": time.perf_counter() - t0})
+        for phase, fn, robots_ in multi_kernel_phases:
+            t0 = time.perf_counter()
+            emit({"phase": phase, **fn(dev, robots=robots_),
                   "seconds": time.perf_counter() - t0})
         print(smi_line, flush=True)
         return 0
@@ -1031,7 +1540,9 @@ def main(argv=None) -> int:
     for phase, fn in (("kernel_a", phase_kernel_a), ("kernel_b", phase_kernel_b),
                       ("ragged", phase_ragged), ("rollout", phase_rollout)):
         run(phase, fn, model, dev)
-    tr = run("training", phase_preset_training, "go1_flat", num_envs=B)
+    kept = {"go1_flat": {}, "multi": {}}
+    tr = run("training", phase_preset_training, "go1_flat", num_envs=B,
+             keep=kept["go1_flat"])
     _check_launches("go1_flat training", tr)
 
     for phase, fn in (("kernel_a_go2", phase_kernel_a),
@@ -1088,17 +1599,38 @@ def main(argv=None) -> int:
     pbt = run("pbt_training", phase_pbt_training)
     _check_launches("pbt training", pbt)
 
+    # the seventh slice: mixed-robot batches, both kernels reading a
+    # per-env robot index
+    for phase, fn, robots_ in multi_kernel_phases:
+        run(phase, fn, dev, robots=robots_)
+    for phase in ("kernel_a_multi_train", "kernel_b_multi_train"):
+        r = results[phase]
+        if min(c["empty_slots"] for c in (
+                r.values() if "flat" in r else [r])) <= 0:
+            raise AssertionError(f"{phase}: no block with empty slots")
+    run("multi_pure_go1", phase_multi_pure_go1, dev)
+    run("multi_rollout", phase_multi_rollout, dev)
+    multi = run("multi_training", phase_multi_training, keep=kept["multi"])
+    _check_launches("multi training", multi)
+    kts = run("kernel_b_training_states", phase_kernel_b_training_states,
+              dev, kept["go1_flat"]["dynamics"], kept["multi"]["dynamics"])
+
     ka, kb, rg = results["kernel_a"], results["kernel_b"], results["ragged"]
     ka2, kc = results["kernel_a_go2"], results["kernel_b_ceiling"]
     ke = results["kernel_b_edges"]
+    kam, kbm = results["kernel_a_multi"], results["kernel_b_multi"]
+    kamt, kbmt = (results["kernel_a_multi_train"],
+                  results["kernel_b_multi_train"])
     robot_a = {k: results[f"kernel_a_{k}"] for k in robots}
     robot_b = {k: results[f"kernel_b_{k}"] for k in robots}
     worst_b = max(list(kb.values()) + [rg["kernel_b"], ke]
-                  + [c for r in robot_b.values() for c in r.values()],
+                  + [c for r in robot_b.values() for c in r.values()]
+                  + list(kbm.values()) + list(kbmt.values()),
                   key=lambda r: r["max_abs_err"])
     paths = {"go1_flat": tr, "parkour": pk, "go1_mob": mob,
              "terrain": terrain, "terrain_full_rewards": full, **presets,
-             "ppo_plus": plus, "ppornn": rnn, "rma": rma, "pbt": pbt}
+             "ppo_plus": plus, "ppornn": rnn, "rma": rma, "pbt": pbt,
+             "multi": multi}
     by_path = lambda name: {p: r["launches"][name] for p, r in paths.items()}
     per_robot_a = {}
     for k, r in robot_a.items():
@@ -1114,12 +1646,30 @@ def main(argv=None) -> int:
                                 f"{k}_{terr}_plain_ms": c["plain_ms"],
                                 f"{k}_{terr}_bound_ms": c["bound_ms"],
                                 f"{k}_{terr}_max_abs_err": c["max_abs_err"]})
+    multi_b = {}
+    for tag, cases in (("multi", kbm), ("multi_train", kbmt)):
+        for terr, c in cases.items():
+            multi_b.update({f"{tag}_{terr}_ms": c["device_ms"],
+                            f"{tag}_{terr}_call_ms": c["call_ms"],
+                            f"{tag}_{terr}_plain_ms": c["plain_ms"],
+                            f"{tag}_{terr}_bound_ms": c["bound_ms"],
+                            f"{tag}_{terr}_max_abs_err": c["max_abs_err"]})
+    multi_b.update(
+        multi_training_states_ms=kts["device_ms"],
+        multi_training_states_plain_ms=kts["plain_ms"],
+        multi_training_states_bound_ms=kts["bound_ms"],
+        multi_training_states_max_abs_err=kts["max_abs_err"],
+        training_states_position_bar=kts["against_plain"]["multi"][
+            "position_bar"],
+        go1_flat_training_states_ms=kts["go1_flat"]["device_ms"],
+        go1_flat_training_states_bound_ms=kts["go1_flat"]["bound_ms"])
     kernels = [
         dict(name=K.FK.name, route="cuda", source=K.FK.source,
-             replaces=K.FK.replaces, launches=rnn["launches"][K.FK.name],
+             replaces=K.FK.replaces, launches=multi["launches"][K.FK.name],
              launches_by_path=by_path(K.FK.name),
              max_abs_err=max([ka["max_abs_err"], ka2["max_abs_err"],
-                              rg["kernel_a"]["max_abs_err"]]
+                              rg["kernel_a"]["max_abs_err"],
+                              kam["max_abs_err"], kamt["max_abs_err"]]
                              + [r["max_abs_err"] for r in robot_a.values()]),
              tolerance=ka["tolerance"],
              ms=ka2["ms"], kernel_ms=ka2["ms"], device_ms=ka2["device_ms"],
@@ -1129,10 +1679,19 @@ def main(argv=None) -> int:
              go1_plain_ms=ka["plain_ms"],
              go1_bound_ms=ka["bound_ms"], ragged_4000_ms=rg["kernel_a"]["ms"],
              **per_robot_a,
-             launch_shape=shape[K.FK.name], library_ms=None),
+             multi_ms=kam["device_ms"], multi_call_ms=kam["call_ms"],
+             multi_plain_ms=kam["plain_ms"], multi_bound_ms=kam["bound_ms"],
+             multi_max_abs_err=kam["max_abs_err"],
+             multi_train_ms=kamt["device_ms"],
+             multi_train_call_ms=kamt["call_ms"],
+             multi_train_plain_ms=kamt["plain_ms"],
+             multi_train_bound_ms=kamt["bound_ms"],
+             multi_train_max_abs_err=kamt["max_abs_err"],
+             launch_shape=shape[K.FK.name],
+             multi_launch_shape=shape[f"{K.FK.name}_multi"], library_ms=None),
         dict(name=K.DYNAMICS.name, route="cuda", source=K.DYNAMICS.source,
              replaces=K.DYNAMICS.replaces,
-             launches=rnn["launches"][K.DYNAMICS.name],
+             launches=multi["launches"][K.DYNAMICS.name],
              launches_by_path=by_path(K.DYNAMICS.name),
              max_abs_err=max(worst_b["max_abs_err"], kc["max_abs_err"],
                              kc["no_ceiling_max_abs_err"]),
@@ -1157,8 +1716,10 @@ def main(argv=None) -> int:
              ragged_4000_ms=rg["kernel_b"]["ms"],
              edges_ms=ke["ms"], edges_call_ms=ke["call_ms"],
              edges_plain_ms=ke["plain_ms"], edges_bound_ms=ke["bound_ms"],
-             edges_max_abs_err=ke["max_abs_err"], **per_robot_b,
-             launch_shape=shape[K.DYNAMICS.name], library_ms=None),
+             edges_max_abs_err=ke["max_abs_err"], **per_robot_b, **multi_b,
+             launch_shape=shape[K.DYNAMICS.name],
+             multi_launch_shape=shape[f"{K.DYNAMICS.name}_multi"],
+             library_ms=None),
     ]
     emit({"kernels": kernels})
     print(smi_line, flush=True)

@@ -7,7 +7,8 @@ map, Go2Terrain on a 3 x 3-cell map in both reward modes, the presets
 go2_flat, b1_flat, mini_cheetah_flat, go2_mob and b1_mob, the last two on
 3 x 3 cells, and the learners ppo_plus and ppornn on the 3 x 5 course,
 rma and a 2-member pbt on go1_flat) on the CPU at 16 envs, 1 iteration
-(2 for pbt, which ends with an exploit) and narrow widths.
+(2 for pbt, which ends with an exploit) and narrow widths, and one
+iteration of `train_multi` (go1/go2/b1 at 12 envs).
 """
 import json
 import os
@@ -65,11 +66,18 @@ learners["rma"] = chip_smoke.phase_preset_training(
     overrides=narrow, algo="rma")
 learners["pbt"] = chip_smoke.phase_pbt_training(
     "cpu", num_envs=16, overrides=narrow)
+import tempfile
+from wtw_tpu_torch.train_multi import build as build_multi
+_, multi = build_multi(("go1", "go2", "b1"), 12, narrow, "cpu",
+                       run_dir=tempfile.mkdtemp(), log_freq=1)
+multi.learn(1, log_fn=lambda *a: None)
+multi_rew = multi.last_per_robot.tolist()
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print(json.dumps({"modules": names, "leaked": leaked,
                   "losses": rec["losses"], "launches": rec["launches"],
                   "parkour": pk, "mob": mob, "terrain": terrain,
-                  "presets": presets, "learners": learners}))
+                  "presets": presets, "learners": learners,
+                  "multi_rew": multi_rew}))
 """
 
 
@@ -92,8 +100,12 @@ def test_port_imports_no_jax_and_trains_on_cpu():
                 "wtw_tpu_torch.models.actuator_net",
                 "wtw_tpu_torch.learn.cat_ppo_plus",
                 "wtw_tpu_torch.learn.cat_ppornn",
-                "wtw_tpu_torch.learn.ppo_rma", "wtw_tpu_torch.learn.pbt"):
+                "wtw_tpu_torch.learn.ppo_rma", "wtw_tpu_torch.learn.pbt",
+                "wtw_tpu_torch.models.multi", "wtw_tpu_torch.envs.multi_env",
+                "wtw_tpu_torch.train_multi"):
         assert mod in out["modules"]
+    assert len(out["multi_rew"]) == 3
+    assert all(abs(v) < 1e6 for v in out["multi_rew"])
     pk, mob, terrain = out["parkour"], out["mob"], out["terrain"]
     presets, learners = out["presets"], out["learners"]
     for losses in [out["losses"], pk["losses"], mob["losses"]] + [

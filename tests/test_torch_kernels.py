@@ -261,3 +261,106 @@ def test_wrapper_refuses_bad_inputs():
         K.fk(model, torch.zeros(19, 8, device=dev, dtype=torch.float64))
     with pytest.raises(ValueError):
         K.fk(model, torch.zeros(8, 19, device=dev).T)
+
+
+MIX = ("go1", "go2", "b1", "mini_cheetah")
+# train_multi's default mix as chip_smoke.py trains it: 51 spheres, runs of
+# 1366/1365/1365 envs padded to 1376 slots, so blocks hold empty slots
+TRAIN_MIX = ("go1", "go2", "b1")
+MIX_Z = {"go1": 0.30, "go2": 0.30, "b1": 0.49, "mini_cheetah": 0.45}
+
+
+def _mixed_case(dev, robots=MIX, n=B, assignment=None, seed=2):
+    """The per-env model of a stack of `robots`, env i robot
+    `assignment[i]` (arange % R by default), random states near each env's
+    robot's height."""
+    from wtw_tpu_torch.models.multi import stack_models
+    stack = stack_models([load_robot(r, device=dev) for r in robots])
+    a = np.arange(n) % len(robots) if assignment is None else assignment
+    per_env = stack.take(a)
+    st, tau = _states(dev, seed, n)
+    z = torch.tensor([MIX_Z[robots[r]] - 0.30 for r in a], device=dev)
+    st.base_pos[:, 2] += z
+    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q], 1).T.contiguous()
+    return per_env, st, tau, fk_in
+
+
+def _rows_b(dev, fk_p, terrain, n=B):
+    if terrain == "flat":
+        hf = flat_heightfield(20.0, 0.5, device=dev)
+    else:
+        hts = (0.06 * np.random.RandomState(3).randn(80, 80)).astype(np.float32)
+        hf = make_heightfield(hts, 0.25, [-10.0, -10.0], device=dev)
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    env = torch.cat([torch.linspace(0.3, 2.0, n, device=dev)[None],
+                     torch.linspace(0.0, 0.4, n, device=dev)[None],
+                     torch.zeros(7, n, device=dev)], 0).contiguous()
+    return hc.contiguous(), duv.contiguous(), env, 1.0 / hf.horizontal_scale
+
+
+@pytest.mark.parametrize("terrain,robots", [
+    ("flat", MIX), ("rough", MIX), ("train-flat", TRAIN_MIX),
+    ("train-rough", TRAIN_MIX)],
+    ids=["flat", "rough", "train-flat", "train-rough"])
+def test_mixed_kernels_match_plain(terrain, robots):
+    """Both kernels at 4096 envs on go1/go2/b1/mini-cheetah interleaved
+    (arange % 4) and on train_multi's go1/go2/b1 (runs padded with empty
+    slots), on the per-env model, against the plain versions at the bars
+    above; two launches give the same bits."""
+    dev = _device()
+    per_env, st, tau, fk_in = _mixed_case(dev, robots)
+    n0 = (K.FK.launches, K.DYNAMICS.launches)
+    fk_b, fk_p = K.fk(per_env, fk_in)
+    ref_b, ref_p = K.fk_plain(per_env, fk_in)
+    torch.testing.assert_close(fk_b, ref_b, rtol=0, atol=1e-5)
+    torch.testing.assert_close(fk_p, ref_p, rtol=0, atol=1e-5)
+    hc, duv, env, inv_s = _rows_b(dev, fk_p, terrain.split("-")[-1])
+    args = (per_env, EngineParams(), pack_state_rows(st, tau), fk_b, fk_p,
+            hc, duv, env, inv_s)
+    got = K.dynamics(*args)
+    ref = K.dynamics_plain(*args)
+    assert (K.FK.launches, K.DYNAMICS.launches) == (n0[0] + 1, n0[1] + 1)
+    lay = K.dyn_out_layout(12)
+    g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
+    tol = {"base_lin_vel": 1e-4, "joint_qd": 1e-3, "base_ang_vel": 1e-3,
+           "foot_forces": 1e-1, "thigh_contact": 1e-1, "calf_contact": 1e-1,
+           "base_contact": 1e-1, "total_normal_force": 1e-1,
+           "foot_velocities": 1e-4}
+    for k in g:
+        torch.testing.assert_close(g[k], r[k], rtol=0, atol=tol.get(k, 1e-5),
+                                   msg=k)
+    assert torch.equal(got, K.dynamics(*args))
+    assert torch.equal(fk_p, K.fk(per_env, fk_in)[1])
+
+
+def test_mixed_path_keeps_the_single_robot_bits():
+    """Every env go1 through the mixed path of a [go1, b1] stack, 100
+    substeps from standing with contacts, is bit-identical to the
+    single-robot path on the same inputs."""
+    from wtw_tpu_torch.models.multi import stack_models
+    dev = _device()
+    go1 = load_robot("go1", device=dev)
+    stack = stack_models([go1, load_robot("b1", device=dev)])
+    per_env = stack.take(np.zeros(B, np.int32))
+    hf = flat_heightfield(20.0, 0.5, device=dev)
+    q0 = torch.tensor([0.0, 0.8, -1.6] * 4, device=dev).expand(B, 12)
+    s0 = PhysicsState(
+        base_pos=torch.tensor([0.0, 0.0, 0.32], device=dev).expand(B, 3),
+        base_quat=torch.tensor([0.0, 0, 0, 1.0], device=dev).expand(B, 4),
+        base_lin_vel=torch.zeros(B, 3, device=dev),
+        base_ang_vel=torch.zeros(B, 3, device=dev), joint_q=q0.clone(),
+        joint_qd=torch.zeros(B, 12, device=dev))
+    ones, zeros = torch.ones(B, device=dev), torch.zeros(B, device=dev)
+    a = b = s0
+    for _ in range(100):
+        ta = 20.0 * (q0 - a.joint_q) - 0.5 * a.joint_qd
+        tb = 20.0 * (q0 - b.joint_q) - 0.5 * b.joint_qd
+        a, ia = physics_step_batched(go1, hf, EngineParams(), a, ta, ones,
+                                     zeros)
+        b, ib = physics_step_batched(per_env, hf, EngineParams(), b, tb, ones,
+                                     zeros)
+    for f in ("base_pos", "base_quat", "base_lin_vel", "base_ang_vel",
+              "joint_q", "joint_qd"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(ia.foot_forces, ib.foot_forces)
+    assert float(ia.total_normal_force.min()) > 10.0

@@ -438,9 +438,13 @@ def host_kernels(tmp_path_factory):
     lib.wtw_model_bytes.restype = ci
     lib.wtw_fk_host.argtypes = [vp] * 4 + [ci]
     lib.wtw_dynamics_host.argtypes = [vp] * 8 + [cf, vp, ci]
+    lib.wtw_fk_multi_host.argtypes = [vp, vp, vp, ci] + [vp] * 3 + [ci]
+    lib.wtw_dynamics_multi_host.argtypes = ([vp, vp, vp, ci] + [vp] * 7
+                                            + [cf, vp, ci])
     lib.wtw_set_lane_order.argtypes = [ci]
     lib.wtw_set_lane_order.restype = None
-    for fn in (lib.wtw_fk_info, lib.wtw_dynamics_info):
+    for fn in (lib.wtw_fk_info, lib.wtw_dynamics_info,
+               lib.wtw_fk_multi_info, lib.wtw_dynamics_multi_info):
         fn.argtypes = [ctypes.POINTER(ci)]
         fn.restype = ci
     assert lib.wtw_model_bytes() == ctypes.sizeof(K.WtwModel)
@@ -600,3 +604,426 @@ def test_kernel_b_ceiling_source_matches_plain(host_kernels, lane_order):
     # the ceiling changes the result: the same inputs without it differ
     free = K.dynamics_plain(model, params, *ins[:5], env, 4.0)
     assert float((free - ref).abs().max()) > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# mixed-robot batches: the kernels' slot-table path, built for the host
+# ---------------------------------------------------------------------------
+
+MIX = ("go1", "go2", "b1", "mini_cheetah")
+# train_multi's default mix as chip_smoke.py trains it
+TRAIN_MIX = ("go1", "go2", "b1")
+MIX_Z = {"go1": 0.30, "go2": 0.30, "b1": 0.49, "mini_cheetah": 0.45}
+DYN_HOST_TOL = {"base_lin_vel": 1e-4, "joint_qd": 1e-3, "base_ang_vel": 1e-3,
+                "foot_forces": 1e-1, "thigh_contact": 1e-1,
+                "calf_contact": 1e-1, "base_contact": 1e-1,
+                "total_normal_force": 1e-1, "foot_velocities": 1e-4}
+
+
+def _mixed_inputs(B, robots=MIX, assignment=None, seed=2):
+    """The per-env model of a stack of `robots`, env i robot
+    `assignment[i]` (arange % R by default), near-standing random states at
+    each robot's height, and the host arrays of the slot table and the R
+    model structs."""
+    from wtw_tpu_torch.models.multi import robot_of, stack_models
+    rng = np.random.RandomState(seed)
+    stack, params = stack_models([load_robot(r) for r in robots]), \
+        EngineParams()
+    a = (np.arange(B) % len(robots) if assignment is None
+         else np.asarray(assignment))
+    robot = torch.from_numpy(a.astype(np.int32))
+    st = random_state(rng, B)
+    st["base_pos"][:, 2] += np.array([MIX_Z[robots[r]] - 0.35 for r in a],
+                                     np.float32)
+    st = PhysicsState(**{k: torch.from_numpy(v) for k, v in st.items()})
+    tau = torch.from_numpy((3.0 * rng.randn(B, 12)).astype(np.float32))
+    fk_in = torch.cat([st.base_pos, st.base_quat, st.joint_q], 1).T.contiguous()
+    raw = bytearray(b"".join(bytes(K.model_struct(robot_of(stack, r), params))
+                             for r in range(len(robots))))
+    mbuf = (ctypes.c_char * len(raw)).from_buffer(raw)
+    slot_env, slot_robot = K.slot_table(robot, len(robots))
+    return stack.take(a), params, robot, st, tau, fk_in, (raw, mbuf), \
+        (slot_env, slot_robot)
+
+
+def _fk_multi_host(lib, mbuf, slots, fk_in, nb, nj, P):
+    B = fk_in.shape[1]
+    fk_b, fk_p = torch.empty(nb * 7 + nj * 6, B), torch.empty(3, P, B)
+    rc = lib.wtw_fk_multi_host(
+        ctypes.addressof(mbuf), slots[0].data_ptr(), slots[1].data_ptr(),
+        slots[0].numel(), fk_in.data_ptr(), fk_b.data_ptr(), fk_p.data_ptr(),
+        B)
+    assert rc == 0
+    return fk_b, fk_p
+
+
+def _dyn_multi_host(lib, mbuf, slots, ins, inv_s, n_out):
+    B = ins[0].shape[1]
+    out = torch.empty(n_out, B)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = lib.wtw_dynamics_multi_host(
+        ctypes.addressof(mbuf), slots[0].data_ptr(), slots[1].data_ptr(),
+        slots[0].numel(), *(ptr(t) for t in ins), inv_s, out.data_ptr(), B)
+    assert rc == 0
+    return out
+
+
+def _kernel_b_rows(fk_p, terrain, B):
+    """Corner rows, offsets and env rows of kernel B's random cases."""
+    if terrain == "flat":
+        hf = flat_heightfield(20.0, 0.5)
+    else:
+        hts = (0.06 * np.random.RandomState(3).randn(80, 80)).astype(np.float32)
+        hf = make_heightfield(hts, 0.25, [-10.0, -10.0])
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    env = torch.cat([torch.linspace(0.3, 2.0, B)[None],
+                     torch.linspace(0.0, 0.4, B)[None],
+                     torch.linspace(-0.5, 2.0, B)[None],
+                     torch.tensor([[0.01], [-0.005], [0.002]]).expand(3, B),
+                     torch.tensor([[0.1], [-0.2], [0.3]]).expand(3, B)],
+                    0).contiguous()
+    return hc.contiguous(), duv.contiguous(), env, 1.0 / hf.horizontal_scale
+
+
+def test_slot_table_groups_envs_by_robot():
+    """Each robot's envs, in env order, padded with -1 to a multiple of
+    SLOT_GROUP, which both kernels' envs per block divide: every block of
+    either kernel holds envs of one robot."""
+    a = np.array([2, 0, 0, 2, 1, 0, 2, 2, 2] * 3, np.int32)
+    slot_env, slot_robot = K.slot_table(torch.from_numpy(a), 4)
+    se, sr = slot_env.numpy(), slot_robot.numpy()
+    assert len(se) % K.SLOT_GROUP == 0 and len(se) == len(sr)
+    for r in range(4):
+        assert list(se[(sr == r) & (se >= 0)]) == list(np.flatnonzero(a == r))
+        assert (sr == r).sum() % K.SLOT_GROUP == 0
+    assert sorted(se[se >= 0]) == list(range(len(a)))
+    # robot 3 has no env and no slot
+    assert (sr == 3).sum() == 0
+
+
+def test_wrappers_take_a_per_env_model_not_a_bare_stack():
+    """Both wrappers read a mixed batch from a per-env model
+    (`stack.take(index)`, as the env builds it) and refuse the bare stack,
+    on the CPU as on the card; the per-env model's plain result is each
+    robot's own for its envs, at the host build's bars."""
+    per_env, params, robot, st, tau, fk_in, _, _ = _mixed_inputs(8)
+    with pytest.raises(ValueError, match="per-env model"):
+        K.fk(per_env.stack, fk_in)
+    fk_b, fk_p = K.fk(per_env, fk_in)
+    hc, duv, env, inv_s = _kernel_b_rows(fk_p, "flat", 8)
+    args = (params, pack_state_rows(st, tau), fk_b, fk_p, hc, duv, env,
+            inv_s)
+    with pytest.raises(ValueError, match="per-env model"):
+        K.dynamics(per_env.stack, *args)
+    out = K.dynamics(per_env, *args)
+    go2 = load_robot("go2")
+    i = torch.from_numpy(np.flatnonzero(robot.numpy() == 1))
+    one_b, one_p = K.fk(go2, fk_in[:, i].contiguous())
+    assert torch.equal(one_b, fk_b[:, i])
+    assert torch.equal(one_p, fk_p[:, :go2.P, i])
+    sub = lambda t: t[..., i].contiguous()
+    one = K.dynamics(go2, params, sub(args[1]), one_b, one_p,
+                     sub(hc[:, :go2.P]), sub(duv[:, :go2.P]), sub(env),
+                     inv_s)
+    lay = K.dyn_out_layout(go2.nj)
+    g, r = K.unpack_rows(out[:, i], lay), K.unpack_rows(one, lay)
+    for k in g:
+        np.testing.assert_allclose(g[k].numpy(), r[k].numpy(),
+                                   atol=DYN_HOST_TOL.get(k, 1e-5), err_msg=k)
+
+
+def test_kernel_blocks_fit_the_slot_group(host_kernels):
+    """Both kernels' envs per block divide SLOT_GROUP, and the mixed path's
+    launch has the single path's shape (one model staged a block)."""
+    for single, multi in ((host_kernels.wtw_fk_info,
+                           host_kernels.wtw_fk_multi_info),
+                          (host_kernels.wtw_dynamics_info,
+                           host_kernels.wtw_dynamics_multi_info)):
+        a, b = (ctypes.c_int * 4)(), (ctypes.c_int * 4)()
+        assert single(a) == 0 and multi(b) == 0
+        assert K.SLOT_GROUP % a[1] == 0
+        assert list(a) == list(b)
+
+
+@pytest.mark.parametrize("B,robots", [(64, MIX), (61, MIX), (61, TRAIN_MIX)],
+                         ids=["64", "61", "train-61"])
+def test_kernel_a_mixed_source_matches_plain(host_kernels, lane_order, B,
+                                             robots):
+    """csrc/fk.cu's slot-table path built for the host vs fk_plain on the
+    per-env model, go1/go2/b1/mini-cheetah interleaved (arange % 4), at the
+    FK bar (1e-5), lanes in both orders, and a ragged B; and train_multi's
+    default mix go1/go2/b1 (51 spheres), whose runs of 21/20/20 envs pad to
+    32 slots each, so blocks hold empty slots."""
+    per_env, params, robot, st, tau, fk_in, (raw, mbuf), slots = \
+        _mixed_inputs(B, robots)
+    ref_b, ref_p = K.fk_plain(per_env, fk_in)
+    got_b, got_p = _fk_multi_host(host_kernels, mbuf, slots, fk_in,
+                                  per_env.nb, per_env.nj, per_env.P)
+    np.testing.assert_allclose(got_b.numpy(), ref_b.numpy(), atol=1e-5)
+    np.testing.assert_allclose(got_p.numpy(), ref_p.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("terrain,B,robots", [
+    ("flat", 64, MIX), ("rough", 64, MIX), ("rough", 61, MIX),
+    ("flat", 61, TRAIN_MIX), ("rough", 61, TRAIN_MIX)],
+    ids=["flat-64", "rough-64", "rough-61", "train-flat-61",
+         "train-rough-61"])
+def test_kernel_b_mixed_source_matches_plain(host_kernels, lane_order,
+                                             terrain, B, robots):
+    """csrc/dynamics.cu's slot-table path built for the host vs
+    dynamics_plain on the per-env model, go1/go2/b1/mini-cheetah
+    interleaved, at the bars of test_kernel_b_source_matches_plain, lanes
+    in both orders; and train_multi's go1/go2/b1 mix, whose padded runs
+    leave empty slots in blocks. Every robot has envs in contact."""
+    per_env, params, robot, st, tau, fk_in, (raw, mbuf), slots = \
+        _mixed_inputs(B, robots)
+    fk_b, fk_p = K.fk_plain(per_env, fk_in)
+    hc, duv, env, inv_s = _kernel_b_rows(fk_p, terrain, B)
+    srows = pack_state_rows(st, tau)
+    ref = K.dynamics_plain(per_env, params, srows, fk_b, fk_p, hc, duv, env,
+                           inv_s)
+    got = _dyn_multi_host(host_kernels, mbuf, slots,
+                          (srows, fk_b, fk_p, hc, duv, None, env), inv_s,
+                          ref.shape[0])
+    lay = K.dyn_out_layout(per_env.nj)
+    g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
+    for k in g:
+        np.testing.assert_allclose(g[k].numpy(), r[k].numpy(),
+                                   atol=DYN_HOST_TOL.get(k, 1e-5), err_msg=k)
+    fn = r["total_normal_force"][:, 0]
+    for k in range(len(robots)):
+        assert float(fn[robot == k].max()) > 10.0, robots[k]
+
+
+def test_kernel_b_mixed_ceiling_source_matches_plain(host_kernels,
+                                                     lane_order):
+    """The slot-table path's ceiling pass: go2 and the mini-cheetah (whose
+    52 spheres pad go2's 51) under the rough ceiling of _go2_ceiling_case,
+    against dynamics_plain with `ceil_h`; padded spheres stay out of both
+    passes."""
+    B = 64
+    st, tau, fric, ground, ceil = _go2_ceiling_case(B)
+    robots = ("go2", "mini_cheetah")
+    per_env, params, robot, _, _, _, (raw, mbuf), slots = _mixed_inputs(
+        B, robots=robots)
+    T = torch.from_numpy
+    srows = pack_state_rows(PhysicsState(**{k: T(v) for k, v in st.items()}),
+                            T(tau))
+    fk_in = srows[:7 + 12].contiguous()
+    fk_b, fk_p = K.fk_plain(per_env, fk_in)
+    hf = make_heightfield(ground, 0.25, [-10.0, -10.0])
+    hc, duv = _hf_rows(hf, fk_p[0], fk_p[1])
+    ceil_h = _hf_height(make_heightfield(ceil, 0.25, [-10.0, -10.0]),
+                        fk_p[0], fk_p[1]).contiguous()
+    env = torch.cat([T(fric)[None], torch.zeros(8, B)], 0).contiguous()
+    ins = (srows, fk_b, fk_p, hc.contiguous(), duv.contiguous(), ceil_h, env)
+    ref = K.dynamics_plain(per_env, params, *ins[:5], env, 4.0, ceil_h=ceil_h)
+    got = _dyn_multi_host(host_kernels, mbuf, slots, ins, 4.0, ref.shape[0])
+    lay = K.dyn_out_layout(per_env.nj)
+    g, r = K.unpack_rows(got, lay), K.unpack_rows(ref, lay)
+    for k in g:
+        np.testing.assert_allclose(g[k].numpy(), r[k].numpy(),
+                                   atol=DYN_HOST_TOL.get(k, 1e-5), err_msg=k)
+    rad = per_env.sph_radius.T
+    touching = fk_p[2] + rad > ceil_h
+    assert int(touching[:, robot == 0].sum()) > 0
+    assert int(touching[:, robot == 1].sum()) > 0
+    assert not bool(touching[rad < 0].any())
+
+
+def test_mixed_path_keeps_the_single_robot_bits(host_kernels, lane_order):
+    """A batch whose every env is go1, through the slot-table path of a
+    [go1, mini_cheetah] stack (go1's 39 spheres padded to 52), gives
+    bit for bit the outputs of the single-robot path on the same inputs,
+    on rough ground: the padded spheres' FK rows sit on the base origin
+    and they add nothing to kernel B."""
+    B = 61
+    per_env, params, robot, st, tau, fk_in, (raw, mbuf), slots = \
+        _mixed_inputs(B, robots=("go1", "mini_cheetah"),
+                      assignment=np.zeros(B, int))
+    go1 = load_robot("go1")
+    one = bytearray(bytes(K.model_struct(go1, params)))
+    one_buf = (ctypes.c_char * len(one)).from_buffer(one)
+    sb, sp = torch.empty(go1.nb * 7 + go1.nj * 6, B), torch.empty(3, 39, B)
+    host_kernels.wtw_fk_host(ctypes.addressof(one_buf), fk_in.data_ptr(),
+                             sb.data_ptr(), sp.data_ptr(), B)
+    mb, mp = _fk_multi_host(host_kernels, mbuf, slots, fk_in, per_env.nb,
+                            per_env.nj, per_env.P)
+    assert torch.equal(mb, sb) and torch.equal(mp[:, :39], sp)
+    assert torch.equal(mp[:, 39:], st.base_pos.T[:, None].expand(3, 13, B))
+    srows = pack_state_rows(st, tau)
+    hc, duv, env, inv_s = _kernel_b_rows(mp, "rough", B)
+    single = torch.empty(sum(n for _, n in K.dyn_out_layout(12)), B)
+    hc1, duv1 = hc[:, :39].contiguous(), duv[:, :39].contiguous()
+    host_kernels.wtw_dynamics_host(
+        ctypes.addressof(one_buf), srows.data_ptr(), sb.data_ptr(),
+        sp.data_ptr(), hc1.data_ptr(), duv1.data_ptr(), None, env.data_ptr(),
+        inv_s, single.data_ptr(), B)
+    mixed = _dyn_multi_host(host_kernels, mbuf, slots,
+                            (srows, mb, mp, hc, duv, None, env), inv_s,
+                            single.shape[0])
+    assert torch.equal(mixed, single)
+    assert float(K.unpack_rows(single, K.dyn_out_layout(12))[
+        "total_normal_force"].max()) > 10.0
+
+
+# ---------------------------------------------------------------------------
+# analytic cases on the port's per-robot engine
+# (the counterparts of tests/test_dynamics_analytic.py)
+# ---------------------------------------------------------------------------
+
+
+def chain_model(n_links, link_len=0.5, mass=1.0, fixed_base=True,
+                point_mass=False, inertia=None):
+    """n revolute links about +y hanging in -z, com at each link's end
+    (tests/test_dynamics_analytic.py:16), built in the port."""
+    from wtw_tpu_torch.models.robot import _ancestor_mask, _make
+    nb = n_links + 1
+    parent = np.arange(-1, n_links).astype(np.int32)
+    com = np.tile([0.0, 0.0, -link_len], (nb, 1))
+    com[0] = 0.0
+    I = inertia if inertia is not None else (1e-9 if point_mass else 0.01)
+    m = np.full(nb, mass)
+    m[0] = 1.0
+    jpos = np.tile([0.0, 0.0, -link_len], (n_links, 1))
+    jpos[0] = 0.0
+    f32 = lambda x: np.asarray(x, np.float32)
+    i32 = lambda x: np.asarray(x, np.int32)
+    big = np.full(n_links, 1e9)
+    static = dict(
+        parent=parent, anc=_ancestor_mask(parent, n_links),
+        joint_pos=f32(jpos), joint_quat=f32(np.tile([0, 0, 0, 1.0],
+                                                    (n_links, 1))),
+        joint_axis=f32(np.tile([0.0, 1.0, 0.0], (n_links, 1))),
+        joint_lower=f32(-big), joint_upper=f32(big), effort_limit=f32(big),
+        velocity_limit=f32(big), joint_damping=f32(np.zeros(n_links)),
+        joint_friction=f32(np.zeros(n_links)), mass=f32(m), com=f32(com),
+        inertia=f32(np.tile(np.eye(3) * I, (nb, 1, 1))),
+        sph_body=i32([0]), sph_pos=f32(np.zeros((1, 3))),
+        sph_radius=f32([0.001]), sph_label=i32([0]), sph_leg=i32([-1]),
+        feet_body=i32(np.zeros(4)), feet_pos=f32(np.zeros((4, 3))),
+        foot_radius=f32(np.full(4, 0.02)))
+    return _make("chain", tuple(f"j{i}" for i in range(n_links)),
+                 tuple(f"b{i}" for i in range(nb)), fixed_base, static,
+                 torch.device("cpu"))
+
+
+def _chain_state(q, qd, base_z=3.0, lin=(0.0, 0.0, 0.0), ang=(0.0, 0.0, 0.0)):
+    t = lambda x: torch.tensor(x, dtype=torch.float32)
+    return PhysicsState(base_pos=t([0.0, 0.0, base_z]),
+                        base_quat=t([0.0, 0.0, 0.0, 1.0]),
+                        base_lin_vel=t(lin), base_ang_vel=t(ang),
+                        joint_q=t(q), joint_qd=t(qd))
+
+
+def _chain_step(model, dt, gravity=(0.0, 0.0, -9.81)):
+    from wtw_tpu_torch.physics.engine import physics_step
+    hf = flat_heightfield()
+    params = EngineParams(dt=dt, armature=0.0, gravity=gravity)
+    return lambda s, tau: physics_step(model, hf, params, s,
+                                       torch.as_tensor(tau, dtype=torch.float32),
+                                       1.0, 0.0)[0]
+
+
+def _chain_momenta(model, s, g=9.81):
+    """(kinetic + potential energy, linear momentum, angular momentum about
+    the world origin) from the port's per-robot FK and each body's com
+    velocity."""
+    from wtw_tpu_torch.physics.engine import fk
+    pos, quat, anchors, axes = fk(model, s.base_pos, s.base_quat, s.joint_q)
+    R = tq.quat_to_matrix(quat).double()
+    p0 = s.base_pos.double()
+    nj = model.nj
+    S = torch.zeros(6 + nj, 6, dtype=torch.float64)
+    S[0:3, 0:3] = torch.eye(3)
+    S[3:6, 3:6] = torch.eye(3)
+    S[6:, :3] = axes.double()
+    S[6:, 3:] = torch.linalg.cross(anchors.double() - p0, axes.double())
+    u = torch.cat([s.base_ang_vel, s.base_lin_vel, s.joint_qd]).double()
+    if model.fixed_base:
+        u[:6] = 0.0
+    V = (model.anc.double()[:, :, None] * S[None] * u[None, :, None]).sum(1)
+    c = pos.double() + torch.einsum("bij,bj->bi", R, model.com.double())
+    w, vo = V[:, :3], V[:, 3:]
+    vc = vo + torch.linalg.cross(w, c - p0)
+    m = model.mass.double()
+    Iw = R @ model.inertia.double() @ R.transpose(-1, -2)
+    ke = 0.5 * (m * (vc * vc).sum(-1)).sum() + 0.5 * torch.einsum(
+        "bi,bij,bj->", w, Iw, w)
+    pe = g * (m * c[:, 2]).sum()
+    lin = (m[:, None] * vc).sum(0)
+    ang = (torch.linalg.cross(c, m[:, None] * vc)
+           + torch.einsum("bij,bj->bi", Iw, w)).sum(0)
+    return float(ke + pe), lin.numpy(), ang.numpy()
+
+
+def _analytic_pendulum_qdd():
+    l, dt = 0.5, 1e-4
+    step = _chain_step(chain_model(1, link_len=l, point_mass=True), dt)
+    for theta in (0.3, -0.8, 1.2):
+        s1 = step(_chain_state([theta], [0.0]), [0.0])
+        np.testing.assert_allclose(float(s1.joint_qd[0]) / dt,
+                                   -9.81 / l * np.sin(theta), rtol=2e-3)
+
+
+def _analytic_rod_inertia():
+    l, m, I, dt, theta = 0.5, 2.0, 0.04, 1e-4, 0.7
+    step = _chain_step(chain_model(1, link_len=l, mass=m, inertia=I), dt)
+    s1 = step(_chain_state([theta], [0.0]), [0.0])
+    np.testing.assert_allclose(
+        float(s1.joint_qd[0]) / dt,
+        -m * 9.81 * l * np.sin(theta) / (m * l * l + I), rtol=2e-3)
+
+
+def _analytic_torque_response():
+    l, m, I, dt = 0.5, 2.0, 0.04, 1e-4
+    step = _chain_step(chain_model(1, link_len=l, mass=m, inertia=I), dt)
+    s1 = step(_chain_state([0.0], [0.0]), [3.0])
+    np.testing.assert_allclose(float(s1.joint_qd[0]) / dt,
+                               3.0 / (m * l * l + I), rtol=2e-3)
+
+
+def _analytic_double_pendulum_energy():
+    model = chain_model(2, link_len=0.4, mass=1.5)
+    step = _chain_step(model, 2e-4)
+    s = _chain_state([1.2, 0.5], [0.0, 0.0])
+    e0 = _chain_momenta(model, s)[0]
+    for _ in range(500):
+        s = step(s, [0.0, 0.0])
+    e1 = _chain_momenta(model, s)[0]
+    assert abs(e1 - e0) / (abs(e0) + 1e-6) < 5e-3, (e0, e1)
+
+
+def _analytic_free_body_momentum():
+    model = chain_model(1, fixed_base=False)
+    step = _chain_step(model, 1e-3, gravity=(0.0, 0.0, 0.0))
+    s = _chain_state([0.4], [-1.0], base_z=5.0, lin=(0.3, -0.2, 0.1),
+                     ang=(2.0, 3.0, -1.0))
+    _, p0, l0 = _chain_momenta(model, s, g=0.0)
+    for _ in range(300):
+        s = step(s, [0.0])
+    _, p1, l1 = _chain_momenta(model, s, g=0.0)
+    np.testing.assert_allclose(np.concatenate([l1, p1]),
+                               np.concatenate([l0, p0]), rtol=2e-2,
+                               atol=2e-3)
+
+
+ANALYTIC_CASES = {
+    "pendulum_qdd": _analytic_pendulum_qdd,
+    "rod_inertia": _analytic_rod_inertia,
+    "torque_response": _analytic_torque_response,
+    "double_pendulum_energy": _analytic_double_pendulum_energy,
+    "free_body_momentum": _analytic_free_body_momentum,
+}
+
+
+@pytest.mark.parametrize("case", sorted(ANALYTIC_CASES))
+def test_engine_analytic(case):
+    """The port's per-robot engine (`physics.engine.physics_step`, one env)
+    on the chain models of tests/test_dynamics_analytic.py, at its bars:
+    point-mass pendulum qdd = -(g/l) sin(theta) and the rod pendulum's
+    -m g l sin(theta) / (m l^2 + I) at rtol 2e-3, the torque response
+    tau / (m l^2 + I) at rtol 2e-3, an undamped double pendulum's energy
+    over 500 steps within 5e-3, and a tumbling free body's momenta over
+    300 steps at rtol 2e-2, atol 2e-3."""
+    ANALYTIC_CASES[case]()

@@ -8,13 +8,15 @@ port module has an obvious counterpart:
   are CUDA C++ kernels under ``csrc/`` with plain-PyTorch versions beside
   them (`physics/kernels.py`).
 - ``wtw_tpu_torch.envs``    — `LeggedEnv` (batched backend, flat ground or
-  Stack-A terrain, PD control or the actuator net, the gait clock),
-  `ParkourEnv`, the actuator-model wrapper.
+  Stack-A terrain, PD control or the actuator net, the gait clock, or a
+  mixed-robot batch from `envs.multi_env`), `ParkourEnv`, the
+  actuator-model wrapper.
 - ``wtw_tpu_torch.terrain`` — the Stack-A and parkour maps (numpy).
 - ``wtw_tpu_torch.learn``   — PPO with concurrent state estimation and the
   `Runner`.
-- ``wtw_tpu_torch.models``  — robot specs, the actor-critic and the
-  actuator net.
+- ``wtw_tpu_torch.models``  — robot specs (one robot, or stacked and
+  assigned to envs by `models.multi`), the actor-critic and the actuator
+  net.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``. The
 package imports torch and numpy only — never jax, flax, optax or wtw_tpu.

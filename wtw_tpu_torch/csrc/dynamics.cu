@@ -74,6 +74,15 @@
 // the constant (0, 0, -1): the open-sky sentinel (1e6 m) blends bilinearly
 // with real heights at crawl cell edges, and slopes taken from those
 // heights would overflow.
+//
+// A mixed-robot batch (wtw_dynamics_multi_launch) runs the same body
+// through the slot table of wtw_model.cuh: a block reads its robot from
+// slot_robot and stages that model alone, so the shared memory a block and
+// the blocks per SM stay those of a single robot; the rows are read and
+// written at the slots' env columns. A robot's padded spheres (radius
+// -1e3, which no term divides by or takes a root of) never touch: their
+// candidates are skipped like any other sphere out of contact, so they add
+// nothing to any sum, and the sums over the touching ones keep their order.
 #include "wtw_model.cuh"
 
 #define DYN_LANES 32  // lanes per env: one warp, whose contact loops are the env's own
@@ -761,8 +770,10 @@ WTW_FN void dynamics_team(const WtwModel& m, DynEnv* w,
 #undef AM
 
 // One block's staging (tid/nthr: this thread among the block's; the host
-// passes 0/1): the envs' input rows, the robot model, and the table of
-// lower-triangle entries. Sizes come from the model in global memory.
+// passes 0/1; MAPPED: slots e0 .. through slot_env): the envs' input rows,
+// the robot model, and the table of lower-triangle entries. Sizes come from
+// the model in global memory.
+template <bool MAPPED>
 WTW_FN void dyn_stage(const WtwModel* __restrict__ m,
                       const float* __restrict__ st,
                       const float* __restrict__ fkb,
@@ -772,12 +783,13 @@ WTW_FN void dyn_stage(const WtwModel* __restrict__ m,
                       const float* __restrict__ ceil_h,
                       const float* __restrict__ env, DynEnv* sm,
                       WtwModel* msm, unsigned short* tri, int B, int e0,
-                      int tid, int nthr) {
+                      int tid, int nthr, const int* __restrict__ slot_env) {
   float* base = (float*)sm;
   const int nb = m->nb, nj = m->nj, nv = m->nv, P = m->P;
 #define STAGE(g, rows, field) \
-  stage_rows<DYN_ENVS>(g, rows, B, e0, base, DYN_STRIDE, \
-                       offsetof(DynEnvCore, field) / 4, tid, nthr)
+  stage_rows<DYN_ENVS, MAPPED>(g, rows, B, e0, base, DYN_STRIDE, \
+                               offsetof(DynEnvCore, field) / 4, tid, nthr, \
+                               slot_env)
   STAGE(st, 7 + 2 * nj + nv, st);
   STAGE(fkb, nb * 7 + nj * 6, fkb);
   STAGE(fkp, 3 * P, fkp);
@@ -797,8 +809,13 @@ WTW_FN void dyn_stage(const WtwModel* __restrict__ m,
 WTW_FN int dyn_out_rows(const WtwModel& m) { return 13 + 2 * m.nj + 36 + 10; }
 
 #ifdef __CUDACC__
+// MAPPED: a mixed batch, m holds one model per robot and the block's slots
+// go through slot_env / slot_robot
+template <bool MAPPED>
 __global__ void __launch_bounds__(DYN_LANES * DYN_ENVS)
 wtw_dynamics_kernel(const WtwModel* __restrict__ m,
+                    const int* __restrict__ slot_env,
+                    const int* __restrict__ slot_robot,
                     const float* __restrict__ st, const float* __restrict__ fkb,
                     const float* __restrict__ fkp, const float* __restrict__ hc,
                     const float* __restrict__ duv,
@@ -810,23 +827,28 @@ wtw_dynamics_kernel(const WtwModel* __restrict__ m,
   WtwModel* msm = reinterpret_cast<WtwModel*>(sm + DYN_ENVS);
   unsigned short* tri = reinterpret_cast<unsigned short*>(msm + 1);
   const int e0 = blockIdx.x * DYN_ENVS;
-  dyn_stage(m, st, fkb, fkp, hc, duv, ceil_h, env, sm, msm, tri, B, e0,
-            threadIdx.x, blockDim.x);
+  if constexpr (MAPPED) m += slot_robot[e0];
+  dyn_stage<MAPPED>(m, st, fkb, fkp, hc, duv, ceil_h, env, sm, msm, tri, B,
+                    e0, threadIdx.x, blockDim.x, slot_env);
   stage_wait();
   __syncthreads();
-  // every team runs every phase, also past the ragged edge (its inputs
-  // are 0 there and its rows are not stored): no barrier is skipped
-  dynamics_team(*msm, &sm[threadIdx.x / DYN_LANES], tri, inv_s,
-                ceil_h != nullptr, threadIdx.x % DYN_LANES);
+  // every team runs every phase, also past the ragged edge (its inputs are
+  // 0 there and its rows are not stored), but for an empty slot's
+  // (slot_live); the block's barriers are outside the body
+  if (slot_live<MAPPED>(slot_env, e0 + threadIdx.x / DYN_LANES))
+    dynamics_team(*msm, &sm[threadIdx.x / DYN_LANES], tri, inv_s,
+                  ceil_h != nullptr, threadIdx.x % DYN_LANES);
   __syncthreads();
-  store_rows<DYN_ENVS>(out, dyn_out_rows(*msm), B, e0, (const float*)sm,
-                       DYN_STRIDE, offsetof(DynEnvCore, out) / 4, threadIdx.x,
-                       blockDim.x);
+  store_rows<DYN_ENVS, MAPPED>(out, dyn_out_rows(*msm), B, e0,
+                               (const float*)sm, DYN_STRIDE,
+                               offsetof(DynEnvCore, out) / 4, threadIdx.x,
+                               blockDim.x, slot_env);
 }
 
 // Above 48 KB a block's shared memory must be asked for, once for each
 // device the kernel runs on (the attribute holds for the current device).
 #define DYN_MAX_DEVICES 64
+template <bool MAPPED>
 static int dyn_smem_attr() {
   static int rc[DYN_MAX_DEVICES];  // 0: not asked yet, else 1 + cudaError
   int d = 0;
@@ -835,7 +857,7 @@ static int dyn_smem_attr() {
   if (d < 0 || d >= DYN_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
   if (rc[d] == 0)
     rc[d] = 1 + (int)cudaFuncSetAttribute(
-                    wtw_dynamics_kernel,
+                    wtw_dynamics_kernel<MAPPED>,
                     cudaFuncAttributeMaxDynamicSharedMemorySize, DYN_SMEM);
   return rc[d] - 1;
 }
@@ -847,53 +869,99 @@ extern "C" int wtw_dynamics_launch(const void* m, const float* st,
                                    const float* ceil_h, const float* env,
                                    float inv_s, float* out, int B,
                                    void* stream) {
-  const int rc = dyn_smem_attr();
+  const int rc = dyn_smem_attr<false>();
   if (rc != 0) return rc;
   const int blocks = (B + DYN_ENVS - 1) / DYN_ENVS;
-  wtw_dynamics_kernel<<<blocks, DYN_LANES * DYN_ENVS, DYN_SMEM,
-                        (cudaStream_t)stream>>>(
-      (const WtwModel*)m, st, fkb, fkp, hc, duv, ceil_h, env, inv_s, out, B);
+  wtw_dynamics_kernel<false><<<blocks, DYN_LANES * DYN_ENVS, DYN_SMEM,
+                               (cudaStream_t)stream>>>(
+      (const WtwModel*)m, nullptr, nullptr, st, fkb, fkp, hc, duv, ceil_h,
+      env, inv_s, out, B);
+  return (int)cudaGetLastError();
+}
+
+// A mixed batch: models of R robots back to back, n_slots slots (a
+// multiple of DYN_ENVS) of the slot table. Returns a cudaError.
+extern "C" int wtw_dynamics_multi_launch(
+    const void* m, const int* slot_env, const int* slot_robot, int n_slots,
+    const float* st, const float* fkb, const float* fkp, const float* hc,
+    const float* duv, const float* ceil_h, const float* env, float inv_s,
+    float* out, int B, void* stream) {
+  if (n_slots % DYN_ENVS) return (int)cudaErrorInvalidValue;
+  const int rc = dyn_smem_attr<true>();
+  if (rc != 0) return rc;
+  wtw_dynamics_kernel<true><<<n_slots / DYN_ENVS, DYN_LANES * DYN_ENVS,
+                              DYN_SMEM, (cudaStream_t)stream>>>(
+      (const WtwModel*)m, slot_env, slot_robot, st, fkb, fkp, hc, duv,
+      ceil_h, env, inv_s, out, B);
   return (int)cudaGetLastError();
 }
 
 // lanes per env, envs per block, shared bytes per block, resident blocks
 // per SM; returns a cudaError (0 = ok)
-extern "C" int wtw_dynamics_info(int* info) {
+template <bool MAPPED>
+static int dyn_info(int* info) {
   info[0] = DYN_LANES;
   info[1] = DYN_ENVS;
   info[2] = DYN_SMEM;
-  const int rc = dyn_smem_attr();
+  const int rc = dyn_smem_attr<MAPPED>();
   if (rc != 0) return rc;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &info[3], wtw_dynamics_kernel, DYN_LANES * DYN_ENVS, DYN_SMEM);
+      &info[3], wtw_dynamics_kernel<MAPPED>, DYN_LANES * DYN_ENVS, DYN_SMEM);
+}
+extern "C" int wtw_dynamics_info(int* info) { return dyn_info<false>(info); }
+extern "C" int wtw_dynamics_multi_info(int* info) {
+  return dyn_info<true>(info);
 }
 #else
 #include <vector>
 
 // Host build of the same body: blocks one after another, each team's lanes
 // in turn (wtw_set_lane_order, in fk.cu, picks the order).
-extern "C" int wtw_dynamics_host(const void* mp, const float* st,
+template <bool MAPPED>
+static int dyn_host(const WtwModel* m, const int* slot_env,
+                    const int* slot_robot, int n_slots, const float* st,
+                    const float* fkb, const float* fkp, const float* hc,
+                    const float* duv, const float* ceil_h, const float* env,
+                    float inv_s, float* out, int B) {
+  std::vector<DynEnv> sm(DYN_ENVS);
+  WtwModel msm{};
+  std::vector<unsigned short> tri(WTW_TRI);
+  if (n_slots % DYN_ENVS) return 1;
+  for (int e0 = 0; e0 < n_slots; e0 += DYN_ENVS) {
+    // NaN everywhere first: a read of what no phase wrote shows
+    for (DynEnv& w : sm)
+      for (int i = 0; i < DYN_STRIDE; ++i) ((float*)&w)[i] = NAN;
+    const WtwModel* mb = MAPPED ? m + slot_robot[e0] : m;
+    dyn_stage<MAPPED>(mb, st, fkb, fkp, hc, duv, ceil_h, env, sm.data(),
+                      &msm, tri.data(), B, e0, 0, 1, slot_env);
+    for (int t = 0; t < DYN_ENVS; ++t)
+      if (slot_live<MAPPED>(slot_env, e0 + t))
+        dynamics_team(msm, &sm[t], tri.data(), inv_s, ceil_h != nullptr, 0);
+    store_rows<DYN_ENVS, MAPPED>(out, dyn_out_rows(msm), B, e0,
+                                 (const float*)sm.data(), DYN_STRIDE,
+                                 offsetof(DynEnvCore, out) / 4, 0, 1,
+                                 slot_env);
+  }
+  return 0;
+}
+
+extern "C" int wtw_dynamics_host(const void* m, const float* st,
                                  const float* fkb, const float* fkp,
                                  const float* hc, const float* duv,
                                  const float* ceil_h, const float* env,
                                  float inv_s, float* out, int B) {
-  const WtwModel* m = (const WtwModel*)mp;
-  std::vector<DynEnv> sm(DYN_ENVS);
-  WtwModel msm{};
-  std::vector<unsigned short> tri(WTW_TRI);
-  for (int e0 = 0; e0 < B; e0 += DYN_ENVS) {
-    // NaN everywhere first: a read of what no phase wrote shows
-    for (DynEnv& w : sm)
-      for (int i = 0; i < DYN_STRIDE; ++i) ((float*)&w)[i] = NAN;
-    dyn_stage(m, st, fkb, fkp, hc, duv, ceil_h, env, sm.data(), &msm,
-              tri.data(), B, e0, 0, 1);
-    for (int t = 0; t < DYN_ENVS; ++t)
-      dynamics_team(msm, &sm[t], tri.data(), inv_s, ceil_h != nullptr, 0);
-    store_rows<DYN_ENVS>(out, dyn_out_rows(msm), B, e0,
-                         (const float*)sm.data(), DYN_STRIDE,
-                         offsetof(DynEnvCore, out) / 4, 0, 1);
-  }
-  return 0;
+  const int n = (B + DYN_ENVS - 1) / DYN_ENVS * DYN_ENVS;
+  return dyn_host<false>((const WtwModel*)m, nullptr, nullptr, n, st, fkb,
+                         fkp, hc, duv, ceil_h, env, inv_s, out, B);
+}
+
+extern "C" int wtw_dynamics_multi_host(
+    const void* m, const int* slot_env, const int* slot_robot, int n_slots,
+    const float* st, const float* fkb, const float* fkp, const float* hc,
+    const float* duv, const float* ceil_h, const float* env, float inv_s,
+    float* out, int B) {
+  return dyn_host<true>((const WtwModel*)m, slot_env, slot_robot, n_slots,
+                        st, fkb, fkp, hc, duv, ceil_h, env, inv_s, out, B);
 }
 
 extern "C" int wtw_dynamics_info(int* info) {
@@ -902,5 +970,8 @@ extern "C" int wtw_dynamics_info(int* info) {
   info[2] = DYN_SMEM;
   info[3] = 0;
   return 0;
+}
+extern "C" int wtw_dynamics_multi_info(int* info) {
+  return wtw_dynamics_info(info);
 }
 #endif

@@ -23,6 +23,12 @@
 // writes the output rows coalesced. A team narrower than a warp keeps the
 // lanes busy: a warp-wide team would issue every instruction of a level for
 // 32 lanes of which 4 work.
+//
+// A mixed-robot batch (wtw_fk_multi_launch) runs the same body through the
+// slot table of wtw_model.cuh: a block reads its robot from slot_robot and
+// stages that model alone, so the static shared memory and the blocks per
+// SM stay those of a single robot; the rows are read and written at the
+// slots' env columns.
 #include "wtw_model.cuh"
 
 #define FK_LANES 8   // lanes per env: a level of a quadruped has 4 bodies
@@ -95,80 +101,134 @@ WTW_FN void fk_team(const WtwModel& m, FkEnv* w, int lane) {
 }
 
 // one block: stage FK_ENVS envs and the robot model, run the teams, store
-// their rows (tid/nthr: this thread among the block's; the host passes 0/1)
+// their rows (tid/nthr: this thread among the block's; the host passes 0/1;
+// MAPPED: slots e0 .. through slot_env)
+template <bool MAPPED>
 WTW_FN void fk_stage(const WtwModel* __restrict__ m,
                      const float* __restrict__ in, FkEnv* sm, WtwModel* msm,
-                     int B, int e0, int tid, int nthr) {
-  stage_rows<FK_ENVS>(in, 7 + m->nj, B, e0, (float*)sm, FK_STRIDE,
-                      offsetof(FkEnvCore, in) / 4, tid, nthr);
+                     int B, int e0, int tid, int nthr,
+                     const int* __restrict__ slot_env) {
+  stage_rows<FK_ENVS, MAPPED>(in, 7 + m->nj, B, e0, (float*)sm, FK_STRIDE,
+                              offsetof(FkEnvCore, in) / 4, tid, nthr,
+                              slot_env);
   stage_model(m, msm, tid, nthr);
 }
 
+template <bool MAPPED>
 WTW_FN void fk_store(const WtwModel& m, float* __restrict__ fk_b,
                      float* __restrict__ fk_p, const FkEnv* sm, int B, int e0,
-                     int tid, int nthr) {
-  store_rows<FK_ENVS>(fk_b, m.nb * 7 + m.nj * 6, B, e0, (const float*)sm,
-                      FK_STRIDE, offsetof(FkEnvCore, fkb) / 4, tid, nthr);
-  store_rows<FK_ENVS>(fk_p, 3 * m.P, B, e0, (const float*)sm, FK_STRIDE,
-                      offsetof(FkEnvCore, fkp) / 4, tid, nthr);
+                     int tid, int nthr, const int* __restrict__ slot_env) {
+  store_rows<FK_ENVS, MAPPED>(fk_b, m.nb * 7 + m.nj * 6, B, e0,
+                              (const float*)sm, FK_STRIDE,
+                              offsetof(FkEnvCore, fkb) / 4, tid, nthr,
+                              slot_env);
+  store_rows<FK_ENVS, MAPPED>(fk_p, 3 * m.P, B, e0, (const float*)sm,
+                              FK_STRIDE, offsetof(FkEnvCore, fkp) / 4, tid,
+                              nthr, slot_env);
 }
 
 extern "C" int wtw_model_bytes() { return (int)sizeof(WtwModel); }
 
 #ifdef __CUDACC__
+// MAPPED: a mixed batch, m holds one model per robot and the block's slots
+// go through slot_env / slot_robot
+template <bool MAPPED>
 __global__ void __launch_bounds__(FK_LANES * FK_ENVS)
-wtw_fk_kernel(const WtwModel* __restrict__ m, const float* __restrict__ in,
-              float* __restrict__ fk_b, float* __restrict__ fk_p, int B) {
+wtw_fk_kernel(const WtwModel* __restrict__ m, const int* __restrict__ slot_env,
+              const int* __restrict__ slot_robot,
+              const float* __restrict__ in, float* __restrict__ fk_b,
+              float* __restrict__ fk_p, int B) {
   __shared__ FkEnv sm[FK_ENVS];
   __shared__ WtwModel msm;
   const int e0 = blockIdx.x * FK_ENVS;
-  fk_stage(m, in, sm, &msm, B, e0, threadIdx.x, blockDim.x);
+  if constexpr (MAPPED) m += slot_robot[e0];
+  fk_stage<MAPPED>(m, in, sm, &msm, B, e0, threadIdx.x, blockDim.x,
+                   slot_env);
   stage_wait();
   __syncthreads();
-  // every team runs every phase, also past the ragged edge (its inputs
-  // are 0 there and its rows are not stored): no barrier is skipped
-  fk_team(msm, &sm[threadIdx.x / FK_LANES], threadIdx.x % FK_LANES);
+  // every team runs every phase, also past the ragged edge (its inputs are
+  // 0 there and its rows are not stored), but for an empty slot's
+  // (slot_live); the block's barriers are outside the body
+  if (slot_live<MAPPED>(slot_env, e0 + threadIdx.x / FK_LANES))
+    fk_team(msm, &sm[threadIdx.x / FK_LANES], threadIdx.x % FK_LANES);
   __syncthreads();
-  fk_store(msm, fk_b, fk_p, sm, B, e0, threadIdx.x, blockDim.x);
+  fk_store<MAPPED>(msm, fk_b, fk_p, sm, B, e0, threadIdx.x, blockDim.x,
+                   slot_env);
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 extern "C" int wtw_fk_launch(const void* m, const float* in, float* fk_b,
                              float* fk_p, int B, void* stream) {
   const int blocks = (B + FK_ENVS - 1) / FK_ENVS;
-  wtw_fk_kernel<<<blocks, FK_LANES * FK_ENVS, 0, (cudaStream_t)stream>>>(
-      (const WtwModel*)m, in, fk_b, fk_p, B);
+  wtw_fk_kernel<false><<<blocks, FK_LANES * FK_ENVS, 0,
+                         (cudaStream_t)stream>>>(
+      (const WtwModel*)m, nullptr, nullptr, in, fk_b, fk_p, B);
+  return (int)cudaGetLastError();
+}
+
+// A mixed batch: models of R robots back to back, n_slots slots (a
+// multiple of FK_ENVS) of the slot table. Returns a cudaError.
+extern "C" int wtw_fk_multi_launch(const void* m, const int* slot_env,
+                                   const int* slot_robot, int n_slots,
+                                   const float* in, float* fk_b, float* fk_p,
+                                   int B, void* stream) {
+  if (n_slots % FK_ENVS) return (int)cudaErrorInvalidValue;
+  wtw_fk_kernel<true><<<n_slots / FK_ENVS, FK_LANES * FK_ENVS, 0,
+                        (cudaStream_t)stream>>>(
+      (const WtwModel*)m, slot_env, slot_robot, in, fk_b, fk_p, B);
   return (int)cudaGetLastError();
 }
 
 // lanes per env, envs per block, shared bytes per block, resident blocks
 // per SM; returns a cudaError (0 = ok)
-extern "C" int wtw_fk_info(int* info) {
+template <bool MAPPED>
+static int fk_info(int* info) {
   info[0] = FK_LANES;
   info[1] = FK_ENVS;
   info[2] = FK_SMEM;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &info[3], wtw_fk_kernel, FK_LANES * FK_ENVS, 0);
+      &info[3], wtw_fk_kernel<MAPPED>, FK_LANES * FK_ENVS, 0);
 }
+extern "C" int wtw_fk_info(int* info) { return fk_info<false>(info); }
+extern "C" int wtw_fk_multi_info(int* info) { return fk_info<true>(info); }
 #else
 #include <vector>
 
 // Host build of the same body (CPU tests of the kernel's arithmetic and
 // of its phases): blocks one after another, each team's lanes in turn.
-extern "C" int wtw_fk_host(const void* mp, const float* in, float* fk_b,
-                           float* fk_p, int B) {
-  const WtwModel* m = (const WtwModel*)mp;
+template <bool MAPPED>
+static int fk_host(const WtwModel* m, const int* slot_env,
+                   const int* slot_robot, int n_slots, const float* in,
+                   float* fk_b, float* fk_p, int B) {
   std::vector<FkEnv> sm(FK_ENVS);
   WtwModel msm{};
-  for (int e0 = 0; e0 < B; e0 += FK_ENVS) {
+  if (n_slots % FK_ENVS) return 1;
+  for (int e0 = 0; e0 < n_slots; e0 += FK_ENVS) {
     // NaN everywhere first: a read of what no phase wrote shows
     for (FkEnv& w : sm)
       for (int i = 0; i < FK_STRIDE; ++i) ((float*)&w)[i] = NAN;
-    fk_stage(m, in, sm.data(), &msm, B, e0, 0, 1);
-    for (int t = 0; t < FK_ENVS; ++t) fk_team(msm, &sm[t], 0);
-    fk_store(msm, fk_b, fk_p, sm.data(), B, e0, 0, 1);
+    const WtwModel* mb = MAPPED ? m + slot_robot[e0] : m;
+    fk_stage<MAPPED>(mb, in, sm.data(), &msm, B, e0, 0, 1, slot_env);
+    for (int t = 0; t < FK_ENVS; ++t)
+      if (slot_live<MAPPED>(slot_env, e0 + t)) fk_team(msm, &sm[t], 0);
+    fk_store<MAPPED>(msm, fk_b, fk_p, sm.data(), B, e0, 0, 1, slot_env);
   }
   return 0;
+}
+
+extern "C" int wtw_fk_host(const void* m, const float* in, float* fk_b,
+                           float* fk_p, int B) {
+  const int n = (B + FK_ENVS - 1) / FK_ENVS * FK_ENVS;
+  return fk_host<false>((const WtwModel*)m, nullptr, nullptr, n, in, fk_b,
+                        fk_p, B);
+}
+
+extern "C" int wtw_fk_multi_host(const void* m, const int* slot_env,
+                                 const int* slot_robot, int n_slots,
+                                 const float* in, float* fk_b, float* fk_p,
+                                 int B) {
+  return fk_host<true>((const WtwModel*)m, slot_env, slot_robot, n_slots, in,
+                       fk_b, fk_p, B);
 }
 
 extern "C" void wtw_set_lane_order(int reverse) { wtw_lane_reverse = reverse; }
@@ -180,4 +240,5 @@ extern "C" int wtw_fk_info(int* info) {
   info[3] = 0;
   return 0;
 }
+extern "C" int wtw_fk_multi_info(int* info) { return wtw_fk_info(info); }
 #endif

@@ -17,6 +17,13 @@
 // memory (threads over (row, env), env fastest: coalesced) and at the end
 // writes the output rows the same way.
 //
+// A mixed-robot batch passes the models of R robots back to back and a
+// slot table: slot s of the launch holds env slot_env[s] (-1: no env),
+// whose robot is slot_robot[s]. The host sorts the envs by robot and pads
+// each robot's run to a multiple of both kernels' envs per block, so every
+// block holds envs of one robot and stages that robot's model only. The
+// staging reads and the stores then go through slot_env (MAPPED below).
+//
 // The same sources also build as plain C++ (no __CUDACC__): team_phase
 // then runs the phase for every lane of the team in turn, in forward or in
 // reverse lane order (wtw_set_lane_order). A phase that reads what another
@@ -157,30 +164,55 @@ WTW_FN void stage_model(const WtwModel* __restrict__ g, WtwModel* sm, int tid,
     copy_async4(&dst[x], &src[x]);
 }
 
-// Rows [0, nrows) of a (nrows, B) array, envs e0 .. e0 + ENVS, into float
-// `off` onward of each env's struct (stride floats apart); envs past B read
-// 0. Threads tid, tid + nthr, ... go over (row, env), env fastest.
-template <int ENVS>
+// The env (column) of slot s: s itself, or slot_env[s] in a mixed batch
+// (-1 for an empty slot).
+template <bool MAPPED>
+WTW_FN int slot_col(const int* __restrict__ slot_env, int s) {
+  if constexpr (MAPPED) return slot_env[s];
+  return s;
+}
+
+// False for an empty slot of a mixed batch (the padding at the end of a
+// robot's run): its team skips the body. Its inputs are staged as 0, which
+// would put every sphere of the env in the ground, its rows are not
+// stored, and a team syncs only its own lanes, so no other team waits on
+// it. A single-robot launch runs every team.
+template <bool MAPPED>
+WTW_FN bool slot_live(const int* __restrict__ slot_env, int s) {
+  if constexpr (MAPPED) return slot_env[s] >= 0;
+  return true;
+}
+
+// Rows [0, nrows) of a (nrows, B) array, slots e0 .. e0 + ENVS, into float
+// `off` onward of each env's struct (stride floats apart); slots past B (or
+// empty) read 0. Threads tid, tid + nthr, ... go over (row, env), env
+// fastest.
+template <int ENVS, bool MAPPED = false>
 WTW_FN void stage_rows(const float* __restrict__ g, int nrows, int B, int e0,
-                       float* sm, int stride, int off, int tid, int nthr) {
+                       float* sm, int stride, int off, int tid, int nthr,
+                       const int* __restrict__ slot_env = nullptr) {
   for (int x = tid; x < nrows * ENVS; x += nthr) {
-    const int r = x / ENVS, t = x % ENVS, e = e0 + t;
+    const int r = x / ENVS, t = x % ENVS;
+    const int e = slot_col<MAPPED>(slot_env, e0 + t);
     float* dst = &sm[t * stride + off + r];
-    if (e < B)
+    if ((!MAPPED || e >= 0) && e < B)
       copy_async4(dst, &g[(size_t)r * B + e]);
     else
       *dst = 0.0f;
   }
 }
 
-// The reverse: rows out of shared memory, stores masked at the ragged edge.
-template <int ENVS>
+// The reverse: rows out of shared memory, stores masked at the ragged edge
+// and at empty slots.
+template <int ENVS, bool MAPPED = false>
 WTW_FN void store_rows(float* __restrict__ g, int nrows, int B, int e0,
                        const float* sm, int stride, int off, int tid,
-                       int nthr) {
+                       int nthr, const int* __restrict__ slot_env = nullptr) {
   for (int x = tid; x < nrows * ENVS; x += nthr) {
-    const int r = x / ENVS, t = x % ENVS, e = e0 + t;
-    if (e < B) g[(size_t)r * B + e] = sm[t * stride + off + r];
+    const int r = x / ENVS, t = x % ENVS;
+    const int e = slot_col<MAPPED>(slot_env, e0 + t);
+    if ((!MAPPED || e >= 0) && e < B)
+      g[(size_t)r * B + e] = sm[t * stride + off + r];
   }
 }
 

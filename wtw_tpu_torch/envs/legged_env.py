@@ -14,8 +14,13 @@ reproduced in torch, so the two envs agree only where no draw is made.
 Ported: flat ground and Stack-A heightfield terrain (the corner rows
 gathered once per policy step and reused by the other substeps), PD
 control and the actuator net, the gait clock, pushes, rigid-body DR
-re-draws on reset, edge teleport and the measured-height terminal check.
-The vmap backend and multi-embodiment batches are later slices.
+re-draws on reset, edge teleport and the measured-height terminal check,
+and mixed-robot batches: a per-env model (`models/multi.py`) with per-env
+default joint angles, PD gains and spawn positions (`envs/multi_env.py`),
+whose effort limits, soft position limits and foot sides follow each env's
+robot. The JAX env maps its per-robot engine over such a model (its `vmap`
+backend); here the batched engine takes it, and on the card both kernels
+read each env's robot from its index.
 """
 from __future__ import annotations
 
@@ -108,11 +113,30 @@ class LeggedEnv:
 
     def __init__(self, cfg: Cfg, model: RobotModel,
                  heightfield: Optional[HeightField] = None,
-                 env_origins: Optional[np.ndarray] = None, device=None):
+                 env_origins: Optional[np.ndarray] = None, device=None,
+                 default_joint_q_override=None,
+                 per_env_control: Optional[dict] = None):
+        """default_joint_q_override: (N, nj) default joint angles of a
+        mixed-robot batch (robots list their legs in different orders).
+        per_env_control: its per-env control constants, optional keys
+        'p_gains' and 'd_gains' (N, nj) and 'init_pos' (N, 3)
+        (`envs.multi_env.make_multi_legged_env` builds all three)."""
         if cfg.control.control_type not in ("P", "actuator_net"):
             raise NotImplementedError(
                 f"control_type={cfg.control.control_type!r}: the port has "
                 f"PD control and the actuator net")
+        # a mixed-robot batch: a per-env model (leading env axis on every
+        # array field)
+        if model.batched:
+            if cfg.control.control_type != "P":
+                raise ValueError("a mixed-robot batch uses PD control (per-"
+                                 "robot actuator nets would need per-env "
+                                 "weights)")
+            if default_joint_q_override is None:
+                raise ValueError("a mixed-robot batch needs per-env default "
+                                 "joint angles (the robots' leg orders "
+                                 "differ): use envs.multi_env."
+                                 "make_multi_legged_env")
         self.device = resolve_device(device)
         dev = self.device
         self.cfg = cfg
@@ -140,11 +164,20 @@ class LeggedEnv:
             max_depenetration_velocity=s.max_depenetration_velocity)
 
         f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
-        self.default_joint_q = default_joint_angles(
-            model, cfg.init_state.default_joint_angles)
-        self.p_gains = torch.full((self._nj,), cfg.control.stiffness, device=dev)
-        self.d_gains = torch.full((self._nj,), cfg.control.damping, device=dev)
-        # soft position limits (legged_robot.py:603-607)
+        self.default_joint_q = (
+            f32(default_joint_q_override)
+            if default_joint_q_override is not None
+            else default_joint_angles(model,
+                                      cfg.init_state.default_joint_angles))
+        pec = per_env_control or {}
+        self.p_gains = (f32(pec["p_gains"]) if "p_gains" in pec else
+                        torch.full((self._nj,), cfg.control.stiffness,
+                                   device=dev))
+        self.d_gains = (f32(pec["d_gains"]) if "d_gains" in pec else
+                        torch.full((self._nj,), cfg.control.damping,
+                                   device=dev))
+        # soft position limits (legged_robot.py:603-607), (nj, 2) or per
+        # env (N, nj, 2)
         mid = (model.joint_lower + model.joint_upper) / 2
         rng = model.joint_upper - model.joint_lower
         lim = cfg.rewards.soft_dof_pos_limit
@@ -156,8 +189,9 @@ class LeggedEnv:
         self.action_scale_vec = f32(
             cfg.control.action_scale
             * (hip * cfg.control.hip_scale_reduction + (1 - hip)))
-        # per-foot lateral side from the hip joint y offsets (raibert)
-        self.foot_side = torch.sign(model.joint_pos[[0, 3, 6, 9], 1])
+        # per-foot lateral side from the hip joint y offsets (raibert), in
+        # each robot's own leg order: (4,), or (N, 4) in a mixed batch
+        self.foot_side = torch.sign(model.joint_pos[..., (0, 3, 6, 9), 1])
         self.gravity = f32(cfg.sim.gravity)
 
         self.noise_vec = f32(observations.noise_scale_vec(cfg))
@@ -214,7 +248,8 @@ class LeggedEnv:
             org[:, 1] = 3.0 * yy.flatten()[:n]
             env_origins = org
         self.env_origins = f32(env_origins)
-        self.base_init_pos = f32(cfg.init_state.pos)
+        # spawn position over the origin: (3,), or (N, 3) in a mixed batch
+        self.base_init_pos = f32(pec.get("init_pos", cfg.init_state.pos))
         self.push_interval = min(
             int(np.ceil(dr.push_interval_s / self.dt)), i32)
 

@@ -32,8 +32,8 @@ class RewardCtx:
     joint_pos_target: torch.Tensor
     last_joint_pos_target: torch.Tensor
     last_last_joint_pos_target: torch.Tensor
-    default_joint_q: torch.Tensor   # (nj,)
-    soft_pos_limits: torch.Tensor   # (nj, 2)
+    default_joint_q: torch.Tensor   # (nj,), or (N, nj) in a mixed batch
+    soft_pos_limits: torch.Tensor   # (nj, 2), or (N, nj, 2)
     foot_forces: torch.Tensor       # (N, 4, 3)
     foot_velocities: torch.Tensor   # (N, 4, 3)
     prev_foot_velocities: torch.Tensor
@@ -46,7 +46,7 @@ class RewardCtx:
     feet_air_time: torch.Tensor     # (N, 4)
     first_contact: torch.Tensor     # (N, 4) bool
     dt: float
-    foot_side: torch.Tensor         # (4,) +1 left / -1 right
+    foot_side: torch.Tensor         # (4,) or (N, 4): +1 left / -1 right
 
 
 def _cmd(ctx, i, default=0.0):
@@ -99,8 +99,8 @@ def collision(ctx, cfg):
 
 
 def dof_pos_limits(ctx, cfg):
-    lo = -torch.clamp(ctx.joint_q - ctx.soft_pos_limits[:, 0], max=0.0)
-    hi = torch.clamp(ctx.joint_q - ctx.soft_pos_limits[:, 1], min=0.0)
+    lo = -torch.clamp(ctx.joint_q - ctx.soft_pos_limits[..., 0], max=0.0)
+    hi = torch.clamp(ctx.joint_q - ctx.soft_pos_limits[..., 1], min=0.0)
     return torch.sum(lo + hi, -1)
 
 
@@ -206,7 +206,7 @@ def raibert_heuristic(ctx, cfg):
     full = lambda v: torch.full_like(c[:, 0], v)
     w = c[:, 12] if n >= 13 else full(0.3)
     l = c[:, 13] if n >= 14 else full(0.45)
-    ys_nom = ctx.foot_side[None, :] * (w[:, None] / 2)
+    ys_nom = ctx.foot_side * (w[:, None] / 2)
     xs_nom = torch.stack([l / 2, l / 2, -l / 2, -l / 2], -1)
     phases = torch.abs(1.0 - ctx.foot_indices * 2.0) * 1.0 - 0.5
     freq = c[:, 4] if n > 4 else full(3.0)

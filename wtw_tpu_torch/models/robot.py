@@ -5,13 +5,19 @@
 `wtw_tpu_torch/models/data/` and returns a `RobotModel` holding torch
 tensors on the requested device plus a static numpy copy (`model.static`)
 that the kernels' constant buffer and the plain versions' Python loops read.
+
+A mixed-robot batch (`models/multi.py`) holds every array field with a
+leading env axis, as the JAX package's per-env `RobotModel` does; such a
+per-env model also carries the stacked robots it was taken from (`stack`)
+and each env's robot index (`assignment`, and `robot` on the device), which
+is what the kernels read.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,13 +41,19 @@ class RobotModel:
     """Static quadruped description: nb bodies, nj joints, P spheres.
 
     Every array field is a tensor on `device`; `static` holds the same
-    arrays as numpy (int32 / float32)."""
+    arrays as numpy (int32 / float32). Array fields may carry a leading
+    axis (robots of a stack, or envs of a per-env model); the sizes come
+    from the names and the last sphere axis. A per-env model has `stack`
+    (the R stacked robots) and `assignment` ((N,) robot of each env), and
+    `robot` is the assignment as an int32 tensor on `device`."""
     name: str
     joint_names: Tuple[str, ...]
     body_names: Tuple[str, ...]
     fixed_base: bool
     static: Dict[str, np.ndarray]
     device: torch.device
+    stack: Optional["RobotModel"] = None
+    assignment: Optional[np.ndarray] = None
 
     def __getattr__(self, key):
         # array fields resolve to device tensors (built once, see load_robot)
@@ -52,11 +64,11 @@ class RobotModel:
 
     @property
     def nb(self) -> int:
-        return int(self.static["mass"].shape[0])
+        return len(self.body_names)
 
     @property
     def nj(self) -> int:
-        return int(self.static["joint_pos"].shape[0])
+        return len(self.joint_names)
 
     @property
     def nv(self) -> int:
@@ -64,22 +76,44 @@ class RobotModel:
 
     @property
     def P(self) -> int:
-        return int(self.static["sph_body"].shape[0])
+        return int(self.static["sph_body"].shape[-1])
+
+    @property
+    def batched(self) -> bool:
+        """True when the array fields carry a leading robot or env axis."""
+        return self.static["mass"].ndim == 2
 
     @property
     def parent_static(self) -> Tuple[int, ...]:
-        return tuple(int(p) for p in self.static["parent"])
+        # the tree is one for every robot of a stack or env of a batch
+        return tuple(int(p) for p in self.static["parent"].reshape(
+            -1, self.nb)[0])
 
     def to(self, device) -> "RobotModel":
+        device = torch.device(device)
         return _make(self.name, self.joint_names, self.body_names,
-                     self.fixed_base, self.static, torch.device(device))
+                     self.fixed_base, self.static, device,
+                     None if self.stack is None else self.stack.to(device),
+                     self.assignment)
+
+    def take(self, index) -> "RobotModel":
+        """The per-env model of a stack: env i gets robot `index[i]`."""
+        a = np.asarray(index.cpu() if torch.is_tensor(index) else index,
+                       np.int64)
+        return _make(self.name, self.joint_names, self.body_names,
+                     self.fixed_base, {k: v[a] for k, v in self.static.items()},
+                     self.device, self, a.astype(np.int32))
 
 
-def _make(name, joint_names, body_names, fixed_base, static, device):
+def _make(name, joint_names, body_names, fixed_base, static, device,
+          stack=None, assignment=None):
     model = RobotModel(name=name, joint_names=joint_names,
                        body_names=body_names, fixed_base=fixed_base,
-                       static=static, device=device)
+                       static=static, device=device, stack=stack,
+                       assignment=assignment)
     tensors = {k: torch.as_tensor(v, device=device) for k, v in static.items()}
+    if assignment is not None:
+        tensors["robot"] = torch.as_tensor(assignment, device=device)
     object.__setattr__(model, "_tensors", tensors)
     return model
 

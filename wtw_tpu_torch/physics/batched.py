@@ -11,7 +11,9 @@ Two layers:
 
 - `fk_core`, `sphere_pos_core`, `dynamics_core`: the plain PyTorch versions,
   written over env-major tensors ((B, ...) leading env axis). They are what
-  the CPU runs and what the CUDA kernels are held against.
+  the CPU runs and what the CUDA kernels are held against. The model is one
+  robot shared by every env, or a per-env model (`models/multi.py`) whose
+  array fields carry the env axis too.
 - `physics_step_batched`: the public entry. It packs the state into the
   struct-of-arrays rows the kernels read (`physics/kernels.py` documents the
   row layouts) and calls `kernels.fk` / `kernels.dynamics`, which launch
@@ -54,6 +56,20 @@ def _qrot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + w * t + _cross(xyz, t)
 
 
+def _env(x: torch.Tensor, nd: int) -> torch.Tensor:
+    """A model field with `nd` dims of its own, with a leading env axis: a
+    shared field gets a broadcast axis of 1."""
+    return x[None] if x.dim() == nd else x
+
+
+def _at(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows idx of x (B, n, ...) along axis 1: a shared index (k,) or a
+    per-env one (B, k) -> (B, k, ...)."""
+    if idx.dim() == 1:
+        return x[:, idx]
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
 def _skew(v: torch.Tensor) -> torch.Tensor:
     x, y, z = v.unbind(-1)
     zero = torch.zeros_like(x)
@@ -78,13 +94,13 @@ def fk_core(model: RobotModel, base_pos, base_quat, joint_q):
     for j in range(nj):
         child, p = j + 1, parent[j + 1]
         qp = quat[p]
-        anchor = pos[p] + _qrot(qp, model.joint_pos[j].expand_as(pos[p]))
-        q_frame = quat_mul(qp, model.joint_quat[j].expand_as(qp))
+        axis = model.joint_axis[..., j, :]
+        anchor = pos[p] + _qrot(qp, model.joint_pos[..., j, :].expand_as(pos[p]))
+        q_frame = quat_mul(qp, model.joint_quat[..., j, :].expand_as(qp))
         half = 0.5 * joint_q[:, j:j + 1]
-        q_j = torch.cat([model.joint_axis[j] * torch.sin(half),
-                         torch.cos(half)], dim=-1)
+        q_j = torch.cat([axis * torch.sin(half), torch.cos(half)], dim=-1)
         quat[child] = quat_mul(q_frame, q_j)
-        axes.append(_qrot(q_frame, model.joint_axis[j].expand_as(anchor)))
+        axes.append(_qrot(q_frame, axis.expand_as(anchor)))
         pos[child] = anchor
         anchors.append(anchor)
     return (torch.stack(pos, 1), torch.stack(quat, 1),
@@ -96,7 +112,7 @@ def sphere_pos_core(model: RobotModel, body_pos, body_quat):
     -> xp (B, P, 3), R (B, nb, 3, 3)."""
     R = quat_to_matrix(body_quat)
     sb = model.sph_body.long()
-    xp = body_pos[:, sb] + _rot(R[:, sb], model.sph_pos)
+    xp = _at(body_pos, sb) + _rot(_at(R, sb), model.sph_pos)
     return xp, R
 
 
@@ -127,7 +143,8 @@ def dynamics_core(model: RobotModel, params: EngineParams,
     S[:, 3:6, 3:6] = eye3
     S[:, 6:, :3] = I["axes"]
     S[:, 6:, 3:] = _cross(I["anchors"] - base_pos[:, None], I["axes"])
-    Jb = model.anc[None, :, :, None] * S[:, None]       # (B, nb, nv, 6)
+    anc = _env(model.anc, 2)                            # (1|B, nb, nv)
+    Jb = anc[..., None] * S[:, None]                    # (B, nb, nv, 6)
     V = torch.einsum("bnik,bi->bnk", Jb, u)             # body velocities
     Vw, Vv = V[..., :3], V[..., 3:]
 
@@ -136,8 +153,8 @@ def dynamics_core(model: RobotModel, params: EngineParams,
     c = I["body_pos"] + _rot(R, model.com) - base_pos[:, None]
     c = torch.cat([c[:, :1] + _rot(R[:, 0], I["com_off"])[:, None],
                    c[:, 1:]], dim=1)
-    mass = torch.cat([model.mass[:1] + I["payload"][:, None],
-                      model.mass[1:].expand(B, nb - 1)], dim=1)
+    m0 = _env(model.mass, 1).expand(B, nb)
+    mass = torch.cat([m0[:, :1] + I["payload"][:, None], m0[:, 1:]], dim=1)
     Iw = R @ model.inertia @ R.transpose(-1, -2)
     c2 = (c * c).sum(-1)
     Io = Iw + mass[..., None, None] * (c2[..., None, None] * eye3
@@ -192,15 +209,16 @@ def dynamics_core(model: RobotModel, params: EngineParams,
     depth = (xp[..., 2] - hgt) * (-inv_n) + model.sph_radius
     sb = model.sph_body.long()
     r_p = xp - base_pos[:, None]
-    vel = Vv[:, sb] + _cross(Vw[:, sb], r_p)
-    groups = contact_groups(model).to(dev)
+    vel = _at(Vv, sb) + _cross(_at(Vw, sb), r_p)
+    groups = contact_groups(model).to(dev)              # (13, P) | (B, 13, P)
     if I.get("ceil_h") is not None:
         depth = torch.cat([depth, xp[..., 2] + model.sph_radius
                            - I["ceil_h"]], dim=1)
         down = torch.tensor([0.0, 0.0, -1.0], device=dev).expand_as(n)
         n = torch.cat([n, down], dim=1)
         r_p, vel = torch.cat([r_p, r_p], dim=1), torch.cat([vel, vel], dim=1)
-        sb, groups = torch.cat([sb, sb]), torch.cat([groups, groups], dim=1)
+        sb = torch.cat([sb, sb], dim=-1)
+        groups = torch.cat([groups, groups], dim=-1)
     active = (depth > 0.0).float()
     f_cap = c_n_imp * float(params.max_depenetration_velocity)
     f_n0 = torch.minimum(torch.clamp(k_c * depth, min=0.0),
@@ -212,7 +230,7 @@ def dynamics_core(model: RobotModel, params: EngineParams,
     cn_eff = active * c_n_imp[:, None]
     coef = cn_eff - c_t
     # contact Jacobian rows J_i(p) = anc[body_p, i] (sv_i + sw_i x r_p)
-    Jc = model.anc[sb][None, :, :, None] * (
+    Jc = _at(anc, sb)[..., None] * (
         S[:, None, :, 3:] + _cross(S[:, None, :, :3], r_p[:, :, None]))
     wn = (Jc * n[:, :, None]).sum(-1)                    # (B, P, nv)
     A_c = (torch.einsum("bp,bpi,bpj->bij", coef, wn, wn)
@@ -220,10 +238,11 @@ def dynamics_core(model: RobotModel, params: EngineParams,
     rhs_c = torch.einsum("bpi,bp->bi", wn, f_n0)
 
     # ---- implicit solve over the free dofs ----
-    damp = torch.cat([torch.zeros(6, device=dev), model.joint_damping])
+    damp = torch.cat([torch.zeros(B, 6, device=dev),
+                      _env(model.joint_damping, 1).expand(B, nj)], dim=1)
     tau_full = torch.cat([torch.zeros(B, 6, device=dev), I["tau"]], dim=1)
     rhs = ((M * u[:, None, :]).sum(-1) + dt * (tau_full - C) + dt * rhs_c)
-    A = M + dt * torch.diag(damp) + dt * A_c
+    A = M + dt * torch.diag_embed(damp) + dt * A_c
     lo = 6 if model.fixed_base else 0
     u_new = torch.zeros(B, nv, device=dev)
     u_new[:, lo:] = cholesky_solve(A[:, lo:, lo:], rhs[:, lo:])
@@ -235,7 +254,8 @@ def dynamics_core(model: RobotModel, params: EngineParams,
     fn_lin = f_n0 - cn_eff * vn_new
     c_force = fn_lin[..., None] * n - c_t[..., None] * vt_new
     total_fn = torch.clamp(fn_lin, min=0.0).sum(-1)
-    g_acc = torch.einsum("gp,bpk->bgk", groups, c_force)
+    g_acc = torch.einsum("gp,bpk->bgk" if groups.dim() == 2
+                         else "bgp,bpk->bgk", groups, c_force)
     norm3 = lambda v: torch.sqrt((v * v).sum(-1) + 1e-30)
 
     # ---- semi-implicit Euler ----
@@ -251,8 +271,8 @@ def dynamics_core(model: RobotModel, params: EngineParams,
 
     # ---- foot kinematics ----
     fb = model.feet_body.long()
-    fpos = I["body_pos"][:, fb] + _rot(R[:, fb], model.feet_pos)
-    fvel = Vv[:, fb] + _cross(Vw[:, fb], fpos - base_pos[:, None])
+    fpos = _at(I["body_pos"], fb) + _rot(_at(R, fb), model.feet_pos)
+    fvel = _at(Vv, fb) + _cross(_at(Vw, fb), fpos - base_pos[:, None])
 
     return dict(
         base_pos=base_pos + dpos, base_quat=qn,
@@ -265,7 +285,10 @@ def dynamics_core(model: RobotModel, params: EngineParams,
 
 def sphere_groups(model: RobotModel) -> np.ndarray:
     """Contact group per sphere (`batched.py:640-643`): foot of leg l -> l,
-    thigh of leg l -> 4 + l, calf of leg l -> 8 + l, base -> 12, other -1."""
+    thigh of leg l -> 4 + l, calf of leg l -> 8 + l, base -> 12, other -1.
+    (P,), or (B, P) for a per-env model; a padded sphere (label 0) is in
+    the base group, as in the JAX engine's base force, and adds exactly
+    zero to it."""
     lbl, leg = model.static["sph_label"], model.static["sph_leg"]
     grp = np.full(lbl.shape, -1, np.int32)
     for l in range(4):
@@ -277,10 +300,10 @@ def sphere_groups(model: RobotModel) -> np.ndarray:
 
 
 def contact_groups(model: RobotModel) -> torch.Tensor:
-    """(13, P) 0/1 masks of `sphere_groups`."""
+    """(13, P) 0/1 masks of `sphere_groups`; (B, 13, P) per env."""
     grp = sphere_groups(model)
     return torch.from_numpy(
-        (grp[None, :] == np.arange(13)[:, None]).astype(np.float32))
+        (grp[..., None, :] == np.arange(13)[:, None]).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,17 @@ Build: one `nvcc` call over both `.cu` files into `wtw_tpu_torch/_build/`
 at first use, loaded with ctypes (plain C interface, no torch headers — a
 few seconds instead of minutes). A CUDA tensor goes to the kernel or
 raises; a CPU tensor goes to the plain version. There is no fallback.
+
+Mixed-robot batches (`models/multi.py`): both wrappers also take a per-env
+model (`stack.take(index)`), which carries the stack of R robots and each
+env's robot index (int32 (B,) on the card). The model buffer then holds R
+`WtwModel`s, one per robot, each built by `model_struct` from that robot's
+sphere-padded model, and the kernel reads the envs through a slot table
+(`slot_table`): the envs sorted by robot, each robot's run padded with
+empty slots to a multiple of SLOT_GROUP, so that every block of either
+kernel holds envs of one robot and stages one model, as a single-robot
+block does. A block's envs are then strided columns of the rows instead of
+neighbouring ones. A single-robot call launches the same kernel as before.
 """
 from __future__ import annotations
 
@@ -51,8 +62,10 @@ import subprocess
 import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..models.multi import robot_of
 from ..models.robot import RobotModel
 from .batched import dynamics_core, fk_core, sphere_groups, sphere_pos_core
 from .engine import EngineParams
@@ -63,6 +76,9 @@ SOURCES = ("fk.cu", "dynamics.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 MAX_BODIES, MAX_JOINTS, MAX_DOFS, MAX_SPHERES = 16, 15, 21, 64
+# envs of one robot per run of the slot table: a multiple of both kernels'
+# envs per block (16 and 8)
+SLOT_GROUP = 16
 
 
 @dataclasses.dataclass
@@ -236,13 +252,58 @@ def model_struct(model: RobotModel, params: EngineParams) -> WtwModel:
 
 def _model_buffer(model: RobotModel, params: EngineParams,
                   device: torch.device) -> torch.Tensor:
-    """The WtwModel bytes on `device`, built once per (params, device)."""
+    """The WtwModel bytes on `device`, built once per (params, device): one
+    struct, or for a stack of R robots R structs back to back."""
     cache = model.__dict__.setdefault("_kernel_buffers", {})
     key = (params, str(device))
     if key not in cache:
-        raw = bytearray(bytes(model_struct(model, params)))
+        robots = ([robot_of(model, r) for r in range(_n_robots(model))]
+                  if model.batched else [model])
+        raw = bytearray(b"".join(bytes(model_struct(m, params))
+                                 for m in robots))
         cache[key] = torch.frombuffer(raw, dtype=torch.uint8).to(device)
     return cache[key]
+
+
+def slot_table(robot: torch.Tensor, n_robots: int):
+    """The kernels' view of a mixed batch: (slot_env, slot_robot), int32 on
+    the robot index's device. slot_env lists the envs robot by robot (in
+    env order within a robot), each robot's run padded with -1 to a
+    multiple of SLOT_GROUP; slot_robot is the robot of each slot. Built on
+    the host once per index tensor and kept on it."""
+    key = (n_robots, robot._version)
+    got = getattr(robot, "_wtw_slots", None)
+    if got is not None and got[0] == key:
+        return got[1]
+    a = robot.cpu().numpy().astype(np.int64)
+    if a.size and (a.min() < 0 or a.max() >= n_robots):
+        raise ValueError(f"robot index outside [0, {n_robots})")
+    env, rob = [], []
+    for r in range(n_robots):
+        idx = np.flatnonzero(a == r)
+        pad = -len(idx) % SLOT_GROUP
+        env.append(np.concatenate([idx, np.full(pad, -1)]))
+        rob.append(np.full(len(idx) + pad, r))
+    t = lambda x: torch.as_tensor(np.concatenate(x).astype(np.int32),
+                                  device=robot.device)
+    table = (t(env), t(rob))
+    robot._wtw_slots = (key, table)
+    return table
+
+
+def _kernel_model(model: RobotModel):
+    """-> (the model whose buffer the kernel reads, the robot index or
+    None): a single robot, or the stack and index of a per-env model."""
+    if model.stack is not None:
+        return model.stack, model.robot
+    if model.batched:
+        raise ValueError(f"{model.name}: the kernels take a per-env model "
+                         f"(`stack.take(index)`), not a bare stack")
+    return model, None
+
+
+def _n_robots(stack: RobotModel) -> int:
+    return int(stack.static["mass"].shape[0])
 
 
 # ---------------------------------------------------------------------------
@@ -319,9 +380,15 @@ def build(verbose: bool = True) -> Library:
     lib.wtw_model_bytes.restype = ci
     lib.wtw_fk_launch.argtypes = [vp, vp, vp, vp, ci, vp]
     lib.wtw_fk_launch.restype = ci
+    lib.wtw_fk_multi_launch.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, vp]
+    lib.wtw_fk_multi_launch.restype = ci
     lib.wtw_dynamics_launch.argtypes = [vp] * 8 + [cf, vp, ci, vp]
     lib.wtw_dynamics_launch.restype = ci
-    for fn in (lib.wtw_fk_info, lib.wtw_dynamics_info):
+    lib.wtw_dynamics_multi_launch.argtypes = ([vp, vp, vp, ci] + [vp] * 7
+                                              + [cf, vp, ci, vp])
+    lib.wtw_dynamics_multi_launch.restype = ci
+    for fn in (lib.wtw_fk_info, lib.wtw_dynamics_info,
+               lib.wtw_fk_multi_info, lib.wtw_dynamics_multi_info):
         fn.argtypes = [ctypes.POINTER(ci)]
         fn.restype = ci
     if lib.wtw_model_bytes() != ctypes.sizeof(WtwModel):
@@ -333,18 +400,26 @@ def build(verbose: bool = True) -> Library:
 
 def launch_shape() -> Dict[str, Dict[str, int]]:
     """Per kernel: lanes per env, envs per block, shared bytes per block and
-    resident blocks per SM on the current device (builds the library)."""
+    resident blocks per SM on the current device (builds the library);
+    `<name>_multi` the same for its mixed-robot path, which stages one
+    model a block and runs a block per SLOT_GROUP-aligned run of slots."""
     lib = build().lib
     shapes = {}
-    for k, fn in ((FK, lib.wtw_fk_info), (DYNAMICS, lib.wtw_dynamics_info)):
+    for name, fn, multi in (
+            (FK.name, lib.wtw_fk_info, False),
+            (DYNAMICS.name, lib.wtw_dynamics_info, False),
+            (f"{FK.name}_multi", lib.wtw_fk_multi_info, True),
+            (f"{DYNAMICS.name}_multi", lib.wtw_dynamics_multi_info, True)):
         info = (ctypes.c_int * 4)()
         rc = fn(info)
         if rc != 0:
-            raise RuntimeError(f"{k.name}: occupancy query failed: "
+            raise RuntimeError(f"{name}: occupancy query failed: "
                                f"cudaError {rc}")
-        shapes[k.name] = dict(lanes_per_env=info[0], envs_per_block=info[1],
-                              shared_bytes_per_block=info[2],
-                              blocks_per_sm=info[3])
+        shapes[name] = dict(lanes_per_env=info[0], envs_per_block=info[1],
+                            shared_bytes_per_block=info[2],
+                            blocks_per_sm=info[3])
+        if multi:
+            shapes[name].update(models_per_block=1, slot_group=SLOT_GROUP)
     return shapes
 
 
@@ -376,7 +451,8 @@ def _stream(device) -> int:
 
 
 def fk_plain(model: RobotModel, fk_in: torch.Tensor):
-    """Plain PyTorch version of kernel A: rows in, (fk_b, fk_p) rows out."""
+    """Plain PyTorch version of kernel A: rows in, (fk_b, fk_p) rows out;
+    `model` is one robot or a per-env model."""
     nj = model.nj
     t = fk_in.T
     body_pos, body_quat, anchors, axes = fk_core(
@@ -388,21 +464,42 @@ def fk_plain(model: RobotModel, fk_in: torch.Tensor):
     return fk_b.T.contiguous(), xp.permute(2, 1, 0).contiguous()
 
 
+def _check_robot(robot: Optional[torch.Tensor], B: int, dev):
+    if robot is not None and (robot.dtype != torch.int32
+                              or tuple(robot.shape) != (B,)
+                              or robot.device != dev):
+        raise ValueError(f"robot: expected int32 ({B},) on {dev}, got "
+                         f"{robot.dtype} {tuple(robot.shape)} on "
+                         f"{robot.device}")
+
+
 def fk(model: RobotModel, fk_in: torch.Tensor):
-    """Kernel A on a CUDA tensor, its plain version on a CPU tensor."""
+    """Kernel A on a CUDA tensor, its plain version on a CPU tensor. A
+    per-env model (`stack.take(index)`) brings the stack whose robots the
+    kernel stages and each env's robot index."""
     B = fk_in.shape[-1]
     _check(fk_in, (7 + model.nj, B), "fk_in")
+    kmodel, robot = _kernel_model(model)
     if not _on_card(fk_in):
         return fk_plain(model, fk_in)
     dev = fk_in.device
+    _check_robot(robot, B, dev)
     lib = build().lib
-    mbuf = _model_buffer(model, EngineParams(), dev)
+    mbuf = _model_buffer(kmodel, EngineParams(), dev)
     fk_b = torch.empty(model.nb * 7 + model.nj * 6, B, device=dev)
     fk_p = torch.empty(3, model.P, B, device=dev)
     if B == 0:
         return fk_b, fk_p
-    rc = lib.wtw_fk_launch(mbuf.data_ptr(), fk_in.data_ptr(),
-                           fk_b.data_ptr(), fk_p.data_ptr(), B, _stream(dev))
+    if robot is None:
+        rc = lib.wtw_fk_launch(mbuf.data_ptr(), fk_in.data_ptr(),
+                               fk_b.data_ptr(), fk_p.data_ptr(), B,
+                               _stream(dev))
+    else:
+        slot_env, slot_robot = slot_table(robot, _n_robots(kmodel))
+        rc = lib.wtw_fk_multi_launch(
+            mbuf.data_ptr(), slot_env.data_ptr(), slot_robot.data_ptr(),
+            slot_env.numel(), fk_in.data_ptr(), fk_b.data_ptr(),
+            fk_p.data_ptr(), B, _stream(dev))
     if rc != 0:
         raise RuntimeError(f"kernel A launch failed: cudaError {rc}")
     FK.launches += 1
@@ -419,7 +516,8 @@ def dynamics_plain(model: RobotModel, params: EngineParams,
                    fk_p: torch.Tensor, hc: torch.Tensor, duv: torch.Tensor,
                    env: torch.Tensor, inv_hscale: float,
                    ceil_h: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Plain PyTorch version of kernel B, same rows in and out."""
+    """Plain PyTorch version of kernel B, same rows in and out; `model` is
+    one robot or a per-env model."""
     nb, nj, nv = model.nb, model.nj, model.nv
     B = state.shape[1]
     s, fb, ev = state.T, fk_b.T, env.T
@@ -446,7 +544,9 @@ def dynamics(model: RobotModel, params: EngineParams, state: torch.Tensor,
              duv: torch.Tensor, env: torch.Tensor, inv_hscale: float,
              ceil_h: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel B on CUDA tensors, its plain version on CPU tensors. With
-    `ceil_h` (P, B) the kernel also runs its ceiling contact pass."""
+    `ceil_h` (P, B) the kernel also runs its ceiling contact pass. A
+    per-env model (`stack.take(index)`) brings the stack whose robots the
+    kernel stages and each env's robot index."""
     nb, nj, nv, P = model.nb, model.nj, model.nv, model.P
     B = state.shape[-1]
     _check(state, (7 + nj + nv + nj, B), "state")
@@ -462,22 +562,29 @@ def dynamics(model: RobotModel, params: EngineParams, state: torch.Tensor,
     devs = {t.device for t in ins}
     if len(devs) != 1:
         raise ValueError(f"kernel B inputs on several devices: {devs}")
+    kmodel, robot = _kernel_model(model)
     if not _on_card(state):
         return dynamics_plain(model, params, state, fk_b, fk_p, hc, duv, env,
                               inv_hscale, ceil_h)
     dev = state.device
+    _check_robot(robot, B, dev)
     lib = build().lib
-    mbuf = _model_buffer(model, params, dev)
+    mbuf = _model_buffer(kmodel, params, dev)
     n_out = sum(n for _, n in dyn_out_layout(nj))
     out = torch.empty(n_out, B, device=dev)
     if B == 0:
         return out
-    rc = lib.wtw_dynamics_launch(
-        mbuf.data_ptr(), state.data_ptr(), fk_b.data_ptr(), fk_p.data_ptr(),
-        hc.data_ptr(), duv.data_ptr(),
-        None if ceil_h is None else ceil_h.data_ptr(), env.data_ptr(),
-        float(inv_hscale),
-        out.data_ptr(), B, _stream(dev))
+    ins = (state.data_ptr(), fk_b.data_ptr(), fk_p.data_ptr(),
+           hc.data_ptr(), duv.data_ptr(),
+           None if ceil_h is None else ceil_h.data_ptr(), env.data_ptr(),
+           float(inv_hscale), out.data_ptr(), B, _stream(dev))
+    if robot is None:
+        rc = lib.wtw_dynamics_launch(mbuf.data_ptr(), *ins)
+    else:
+        slot_env, slot_robot = slot_table(robot, _n_robots(kmodel))
+        rc = lib.wtw_dynamics_multi_launch(
+            mbuf.data_ptr(), slot_env.data_ptr(), slot_robot.data_ptr(),
+            slot_env.numel(), *ins)
     if rc != 0:
         raise RuntimeError(f"kernel B launch failed: cudaError {rc}")
     DYNAMICS.launches += 1

@@ -1,6 +1,6 @@
 """Where one training iteration's time goes on the GPU.
 
-    python -m wtw_tpu_torch.trace [--task go1_flat|...|b1_mob|parkour|terrain]
+    python -m wtw_tpu_torch.trace [--task go1_flat|...|b1_mob|parkour|terrain|multi]
                                   [--algo ppo|ppo_plus|ppornn|ppo_cse|rma]
                                   [--num-envs N] [--iterations 2]
 
@@ -8,9 +8,10 @@ Builds the task at full width (a preset of `train.build`, such as go1_flat,
 go1_mob or b1_mob, with the PPO learner or `--algo rma`; or through
 `train_parkour.build` Go2 parkour with CaT on the full course, `parkour`,
 or Go2Terrain on its Stack-A map, `terrain`, with CaT PPO or `--algo
-ppo_plus|ppornn`; N defaults to 4096 envs, a MoB preset's to its own
-count), runs one
-warm-up iteration, then times the rollout and the update of each further
+ppo_plus|ppornn`; or through `train_multi.build` a mixed-robot batch,
+`multi`, go1/go2/b1 interleaved (the JAX package's round-5 mix), whose
+iteration also takes the per-robot reward step; N defaults to 4096 envs,
+a MoB preset's to its own count), runs one warm-up iteration, then times the rollout and the update of each further
 iteration separately (host clock, each ending in
 `torch.cuda.synchronize()`), and profiles the last one with
 `torch.profiler`: device time by kernel (self time summed over launches),
@@ -72,7 +73,7 @@ def _group(name: str) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default="go1_flat",
-                    choices=sorted(PRESETS) + ["parkour", "terrain"])
+                    choices=sorted(PRESETS) + ["parkour", "terrain", "multi"])
     ap.add_argument("--algo", default=None,
                     choices=["ppo", "ppo_plus", "ppornn", "ppo_cse", "rma"],
                     help="the learner: ppo (default), ppo_plus or ppornn on "
@@ -84,9 +85,18 @@ def main(argv=None):
     args = ap.parse_args(argv)
     parkour = args.task in ("parkour", "terrain")
     algo = args.algo or ("ppo" if parkour else "ppo_cse")
-    if (algo in ("ppo", "ppo_plus", "ppornn")) != parkour:
+    if (algo in ("ppo", "ppo_plus", "ppornn")) != parkour or (
+            args.task == "multi" and algo != "ppo_cse"):
         ap.error(f"--algo {algo} does not train --task {args.task}")
-    if parkour:
+    per_robot = None
+    if args.task == "multi":
+        from .train_multi import build as build_multi
+        env, runner = build_multi(("go1", "go2", "b1"),
+                                  args.num_envs or 4096, device="cuda",
+                                  seed=args.seed, run_dir=tempfile.mkdtemp())
+        learner, per_robot = runner.ppo, runner.per_robot_reward
+        world, obs = runner.world, runner.obs_dict
+    elif parkour:
         from .train_parkour import build as build_parkour
         runner = build_parkour(args.num_envs or 4096, device="cuda",
                                seed=args.seed, run_dir=tempfile.mkdtemp(),
@@ -109,6 +119,8 @@ def main(argv=None):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         learner.update(traj, obs)
+        if per_robot is not None:
+            per_robot(world, obs)
         torch.cuda.synchronize()
         return t1 - t0, time.perf_counter() - t1
 
