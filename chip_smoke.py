@@ -107,7 +107,34 @@ Phases, each printing one JSON line with its seconds:
    robot's envs given bit for bit what the single-robot kernel gives them
    on the model the mixed launch staged, and its device time taken apart (no empty slots, columns sorted by robot, each
    robot alone through the single-robot kernel on its own and on its
-   padded model) beside go1_flat's, with the touching spheres of each.
+   padded model) beside go1_flat's, with the touching spheres of each;
+26. eval_play: `wtw_tpu_torch.play` (its `main`) on the go1_mob policy of
+   phase 13, saved as the runner's `.pt` and reloaded through play's
+   loader: the env from the file's config on the full 1500 x 1500 map
+   with every DR off except the lag, trot at 3 Hz and vx 1.5 (the JAX
+   CLI's defaults), 250 steps at the JAX CLI's 64 envs with
+   `--gait-stats`, at the preset's 4000 envs, and at 64 envs under
+   `--sweep rand_large`; each kernel launched exactly steps x 4 per
+   rollout, every metric finite;
+27. eval_gaits: `wtw_tpu_torch.eval_gaits` (its `main`) on the same policy
+   at its defaults (32 envs, 300 steps; the four gaits at 3 Hz and the
+   trot at 2 Hz): exactly 5 x 300 x 4 launches of each kernel, every row
+   finite;
+28. diag_parkour: `wtw_tpu_torch.diag_parkour` on the policy of phase 11
+   (its `.pt`) on the `gap` course pinned at level 0, 64 envs, up to 700
+   steps (it stops once every env's first episode is over, checked every
+   50 steps): exactly steps run x 4 launches, every kernel B call with the
+   ceiling, and the first episodes' attributions summing to the 64 envs.
+
+After each eval run (each of eval_play's three, eval_gaits, diag_parkour)
+both kernels are held against their plain versions on the inputs of that
+run's last kernel B call, at the run's own env count and under the bars of
+kernel_b_training_states (diag_parkour's with the ceiling), and kernel A
+relaunched on those states must give the bits that call was given
+(`last_call`; the kernels line's `eval_states_max_abs_err`). Each eval run
+reports its seconds split into set-up (`build_s`: the checkpoint, the env,
+the map) and rollouts (`rollout_s`), and its env steps/s and ms per policy
+step from the rollout seconds alone.
 
 Every training phase reports env steps/s, `max_memory_allocated` and its
 finite losses. With `--kernels` it runs phases 1-5, 8-9, 12, 14 and 21
@@ -131,8 +158,9 @@ and the per-case times (`kernel_ms`, `ceiling_ms`, `go1_ms`, `flat_ms`,
 are device times per launch;
 before the kernels gave each env a team of lanes they were the
 events-over-calls times that are now `call_ms`. The line's `launches` is
-each kernel's count in the newest slice's path (multi training), and
-`launches_by_path` holds the counts of every training phase.
+each kernel's count in the newest slice's path (eval_play's three runs),
+and `launches_by_path` holds the counts of every training and eval
+phase.
 
 Then the kernels line, the nvidia-smi line, and the result line. Exits
 non-zero, with no result line, when there is no CUDA device, when the port
@@ -703,52 +731,56 @@ def phase_parkour_rollout(model, dev, substeps=100):
                 base_height_max=float(rel_z.max()), launches=launched)
 
 
-class CeilingWatch:
-    """Counts the calls of kernel B's wrapper that pass a ceiling
-    (`ceil_h`), by wrapping `kernels.dynamics`, which the physics entry
-    calls through the module, and keeps the last call's arguments (the
-    physics entry builds them anew for every call)."""
-
-    def __init__(self):
-        from wtw_tpu_torch.physics import kernels as K
-        self.K, self.real, self.calls, self.last = K, K.dynamics, 0, None
+class Counted:
+    """The kernels' launches inside the block: every count set to 0 on
+    entry and read on exit (`launches`), with the block's seconds. Kernel
+    B's wrapper `kernels.dynamics`, which the physics entry calls through
+    the module, is wrapped meanwhile: `dynamics_calls_with_ceiling` counts
+    the calls that pass a ceiling (`ceil_h`), and `last` keeps the last
+    call's arguments (the physics entry builds them anew for every call)."""
 
     def __enter__(self):
+        from wtw_tpu_torch.physics import kernels as K
+        self.K, self.real = K, K.dynamics
+        self.dynamics_calls_with_ceiling, self.last = 0, None
+        for k in K.KERNELS:
+            k.launches = 0
+
         def watched(*args, ceil_h=None, **kw):
             if ceil_h is not None:
-                self.calls += 1
+                self.dynamics_calls_with_ceiling += 1
             self.last = (args, dict(kw, ceil_h=ceil_h))
             return self.real(*args, ceil_h=ceil_h, **kw)
-        self.K.dynamics = watched
+        K.dynamics = watched
+        self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
+        self.seconds = time.perf_counter() - self.t0
         self.K.dynamics = self.real
+        self.launches = {k.name: k.launches for k in self.K.KERNELS}
 
 
 def _measure(runner_learn, dev, iterations, warmup, num_envs, num_steps,
              keep=None):
-    """Warm-up, then counts to 0, the measured iterations, and the counts:
-    -> (warm-up walls, walls, launches, calls of kernel B with a ceiling,
-    env steps/s, peak memory). `keep` (a dict) receives the arguments of
-    kernel B's last call in the measured iterations under "dynamics"."""
-    from wtw_tpu_torch.physics import kernels as K
+    """Warm-up, then the measured iterations inside `Counted`: -> (warm-up
+    walls, walls, launches, calls of kernel B with a ceiling, env steps/s,
+    peak memory). `keep` (a dict) receives the arguments of kernel B's
+    last call in the measured iterations under "dynamics"."""
     quiet = lambda *a: None
     warm = runner_learn(warmup, log_fn=quiet) if warmup else []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    for k in K.KERNELS:
-        k.launches = 0
-    with CeilingWatch() as watch:
+    with Counted() as c:
         walls = runner_learn(iterations, log_fn=quiet)
-    launches = {k.name: k.launches for k in K.KERNELS}
     if keep is not None:
-        keep["dynamics"] = watch.last
+        keep["dynamics"] = c.last
     return dict(warmup_wall_s=warm, iteration_wall_s=walls,
                 env_steps_per_s=[num_steps * num_envs / w for w in walls],
                 max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
                                       if dev.type == "cuda" else None),
-                launches=launches, dynamics_calls_with_ceiling=watch.calls)
+                launches=c.launches,
+                dynamics_calls_with_ceiling=c.dynamics_calls_with_ceiling)
 
 
 def _finite(losses, what):
@@ -759,7 +791,7 @@ def _finite(losses, what):
 
 def phase_parkour_training(device="cuda", num_envs=B, iterations=3, warmup=1,
                            overrides=(), task="parkour", reward_mode=None,
-                           algo="ppo"):
+                           algo="ppo", checkpoint_to=None):
     """`train_parkour` through the port's entry points
     (`wtw_tpu_torch.train_parkour.build` and `ParkourRunner.learn`): Go2
     parkour on the full course, or with `task="terrain"` Go2Terrain on its
@@ -770,7 +802,8 @@ def phase_parkour_training(device="cuda", num_envs=B, iterations=3, warmup=1,
     checks that `improve_actions` (the CPU test's 64 perturbations, sigma
     0.1, alpha 0.5, 3 rounds) raises the run's mean Q on the run's last
     observations; ppornn that the carried hiddens are zero on the rows of
-    the envs whose last step ended in a hard done and nonzero elsewhere."""
+    the envs whose last step ended in a hard done and nonzero elsewhere.
+    `checkpoint_to`: a path that receives the run's `state_last.pt`."""
     from wtw_tpu_torch.train_parkour import build
     dev = torch.device(device)
     run_dir = tempfile.mkdtemp(prefix=f"wtw_chip_smoke_{task}_{algo}_")
@@ -792,6 +825,8 @@ def phase_parkour_training(device="cuda", num_envs=B, iterations=3, warmup=1,
             checks = _check_improvement(ln, runner.obs_n)
         elif algo == "ppornn":
             checks = _check_hiddens(ln, hard.total)
+        if checkpoint_to:
+            shutil.copy(os.path.join(run_dir, "state_last.pt"), checkpoint_to)
         return dict(
             task=task, algo=algo, reward_mode=env.cfg.reward_mode,
             num_envs=env.num_envs, num_obs=env.num_obs,
@@ -885,14 +920,16 @@ def _check_launches(name, rec):
 
 
 def phase_preset_training(preset, device="cuda", num_envs=None, iterations=3,
-                          warmup=1, overrides=(), algo="ppo_cse", keep=None):
+                          warmup=1, overrides=(), algo="ppo_cse", keep=None,
+                          checkpoint_to=None):
     """A preset of `wtw_tpu_torch.train` through the port's entry points
     (`train.build` and the runner's `learn`: `Runner`, or `RMARunner` with
     `algo="rma"`) at `num_envs`, or the preset's own count. On a Stack-A
     map, the field on the card must equal a second host build of the map
     (whose seconds it reports). Counts are set to 0 after the warm-up, just
     before the measured iterations, and read just after them. `keep`: see
-    `_measure`."""
+    `_measure`. `checkpoint_to`: a path that receives the run's
+    `state_last.pt`."""
     from wtw_tpu_torch.terrain import build_terrain
     from wtw_tpu_torch.train import build
     dev = torch.device(device)
@@ -919,6 +956,9 @@ def phase_preset_training(preset, device="cuda", num_envs=None, iterations=3,
         losses = _finite({k: float(stats[k]) for k in (
             "loss", "surrogate_loss", "value_loss", "adaptation_loss",
             "kl_mean")}, f"{preset} training ({algo})")
+        if checkpoint_to:
+            shutil.copy(os.path.join(run_dir, "checkpoints", "state_last.pt"),
+                        checkpoint_to)
         return dict(
             preset=preset, algo=algo, robot=env.model.name,
             num_envs=env.num_envs,
@@ -1156,16 +1196,17 @@ def _position_bar(base_pos_rows) -> float:
     return max(FK_TOL, 2.0 * float(np.spacing(np.float32(far))))
 
 
-def _training_state_errors(K, args, what):
+def _training_state_errors(K, args, what, kw=None):
     """Kernel A and kernel B against their plain versions on one training
-    call's inputs: positions under `_position_bar`, the rest under FK_TOL
-    and DYN_TOL."""
-    model, nb, nj = args[0], args[0].nb, args[0].nj
+    or eval call's inputs (`args`, and `kw`: the ceiling): positions under
+    `_position_bar`, the rest under FK_TOL and DYN_TOL."""
+    model, nb, nj, kw = args[0], args[0].nb, args[0].nj, kw or {}
     fk_in = args[2][:7 + nj].contiguous()
     fb, fp = K.fk(model, fk_in)
     rb, rp = K.fk_plain(model, fk_in)
-    got, ref = K.dynamics(*args), K.dynamics_plain(*args)
-    torch.cuda.synchronize()
+    got, ref = K.dynamics(*args, **kw), K.dynamics_plain(*args, **kw)
+    if got.is_cuda:
+        torch.cuda.synchronize()
     pos_bar = _position_bar(fk_in)
     d = (fb - rb).abs()
     pos_rows = torch.cat([d[:nb * 3], d[nb * 7:nb * 7 + nj * 3]])
@@ -1446,6 +1487,206 @@ def phase_multi_training(device="cuda", robots=TRAIN_MIX, num_envs=B,
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the eighth slice: the eval entry points on trained policies
+# ---------------------------------------------------------------------------
+
+
+def _expect_launches(what, counted, n):
+    """Each kernel launched exactly n times in the block."""
+    off = {k: v for k, v in counted.launches.items() if v != n}
+    if off:
+        raise AssertionError(f"{what}: kernels launched other than {n} times: "
+                             f"{off}")
+
+
+class Timed:
+    """The seconds spent in `module.<name>` inside the block (the card
+    synced before each call's clock stops), by wrapping it: an eval entry
+    point's set-up (`build`: the checkpoint, the env, the map on the card),
+    which is not its rollout."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.seconds = module, name, 0.0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return self.real(*a, **kw)
+            finally:
+                if torch.cuda.is_available():
+                    torch.cuda.synchronize()
+                self.seconds += time.perf_counter() - t0
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def _rollout_rates(counted, build, env_steps, policy_steps):
+    """The block's seconds split into set-up (`build_s`) and rollouts
+    (`rollout_s`), and the rollouts' env steps/s and ms per policy step."""
+    rollout_s = counted.seconds - build.seconds
+    return dict(seconds=counted.seconds, build_s=build.seconds,
+                rollout_s=rollout_s,
+                env_steps_per_s=env_steps / rollout_s,
+                ms_per_policy_step=1e3 * rollout_s / policy_steps)
+
+
+def _last_call_check(counted, what):
+    """Kernel A and kernel B against their plain versions on the inputs of
+    kernel B's last call in the block, at the block's own env count (an
+    eval path launches a grid of a few blocks), and kernel A relaunched on
+    its states giving the bits that call was given. Run after the block,
+    so these launches are not counted."""
+    from wtw_tpu_torch.physics import kernels as K
+    args, kw = counted.last
+    model = args[0]
+    fb, fp = K.fk(model, args[2][:7 + model.nj].contiguous())
+    if not (torch.equal(fb, args[3]) and torch.equal(fp, args[4])):
+        raise AssertionError(f"kernel A on {what}'s last states differs "
+                             f"from its launch there")
+    return dict(num_envs=args[2].shape[1],
+                with_ceiling=kw.get("ceil_h") is not None,
+                kernel_a_same_bits=True,
+                **_training_state_errors(K, args, f"{what}'s last states",
+                                         kw))
+
+
+def _quiet(fn, *a, **kw):
+    """`fn` with its standard output (an entry point's JSON) kept off this
+    script's."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*a, **kw)
+
+
+def _finite_values(d, what):
+    bad = {k: v for k, v in d.items()
+           if isinstance(v, float) and not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{what}: non-finite metrics: {bad}")
+
+
+def phase_eval_play(checkpoint, device="cuda", runs=((64, None, True),
+                                                     (4000, None, False),
+                                                     (64, "rand_large",
+                                                      False)),
+                    steps=250, extra=()):
+    """`wtw_tpu_torch.play` (its `main`, as a user calls it) on a go1_mob
+    checkpoint of the port, reloaded through play's loader: per run (envs,
+    `--sweep`, `--gait-stats`) the env from the file's config, every DR off
+    except the lag, the trot at 3 Hz and vx 1.5 (the JAX CLI's defaults).
+    Each kernel launches exactly steps x 4 per rollout (two with
+    --gait-stats); every metric finite; both kernels against their plain
+    versions on the run's last kernel B inputs. `extra`: more CLI flags."""
+    from wtw_tpu_torch import play
+    out = {}
+    for n, sweep, gait in runs:
+        argv = ["--checkpoint", checkpoint, "--device", device,
+                "--num-envs", str(n), "--steps", str(steps), *extra]
+        if sweep:
+            argv += ["--sweep", sweep]
+        if gait:
+            argv += ["--gait-stats"]
+        with Counted() as c, Timed(play, "build") as b:
+            summary = _quiet(play.main, argv)
+            if device != "cpu":
+                torch.cuda.synchronize()
+        rollouts = 2 if gait else 1
+        key = f"{n}_envs" + (f"_{sweep}" if sweep else "")
+        if device != "cpu":
+            _expect_launches(f"eval_play {key}", c, rollouts * steps * 4)
+        _finite_values(summary, f"eval_play {key}")
+        out[key] = dict(
+            num_envs=n, sweep=sweep, gait_stats=gait, steps=steps,
+            launches=c.launches,
+            **_rollout_rates(c, b, rollouts * steps * n, rollouts * steps),
+            last_call=_last_call_check(c, f"eval_play {key}"),
+            summary=summary)
+    return dict(runs=out, launches={
+        k: sum(r["launches"][k] for r in out.values())
+        for k in ("fk", "dynamics")})
+
+
+def phase_eval_gaits(checkpoint, device="cuda", num_envs=32, steps=300,
+                     extra=()):
+    """`wtw_tpu_torch.eval_gaits` (its `main`) at its defaults: the four
+    gaits at 3 Hz and the trot at 2 Hz, 300 steps each at 32 envs; each
+    kernel launches exactly cases x steps x 4; every row finite; both
+    kernels against their plain versions on the last kernel B inputs."""
+    from wtw_tpu_torch import eval_gaits
+    argv = ["--checkpoint", checkpoint, "--device", device, "--num-envs",
+            str(num_envs), "--steps", str(steps), *extra]
+    with Counted() as c, Timed(eval_gaits, "build") as b:
+        result = _quiet(eval_gaits.main, argv)
+        if device != "cpu":
+            torch.cuda.synchronize()
+    rows = result["rows"]
+    if device != "cpu":
+        _expect_launches("eval_gaits", c, len(rows) * steps * 4)
+    for r in rows:
+        _finite_values(r, "eval_gaits")
+    return dict(num_envs=num_envs, steps=steps, cases=len(rows),
+                launches=c.launches,
+                **_rollout_rates(c, b, len(rows) * steps * num_envs,
+                                 len(rows) * steps),
+                last_call=_last_call_check(c, "eval_gaits"),
+                gaits_matched=result["gaits_matched"],
+                rows=[{k: r[k] for k in ("cmd_gait", "cmd_freq_hz",
+                                         "vx_rmse", "stride_hz", "dominant")}
+                      for r in rows])
+
+
+def phase_diag_parkour(checkpoint, device="cuda", num_envs=64, steps=700,
+                       terrain="gap", level=0, overrides=()):
+    """`wtw_tpu_torch.diag_parkour` (the functions its `main` calls) on a
+    parkour checkpoint of the port: the `terrain` course pinned at `level`,
+    the run stopping once every env's first episode is over (checked every
+    50 steps). Each kernel launches exactly steps run x 4, every kernel B
+    call with the ceiling; the attributions sum to the env count; both
+    kernels against their plain versions on the last kernel B inputs, the
+    ceiling included."""
+    from wtw_tpu_torch import diag_parkour as D
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    env = D.build_env(num_envs, SEED, terrain=terrain, overrides=[
+        f"terrain.min_init_map_level={level}",
+        f"terrain.max_init_map_level={level}", "only_forwards=true",
+        "only_forwards_velocity=0.8", *overrides], device=dev)
+    policy = D.load_cat_policy(checkpoint, env)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    with Counted() as c:
+        out, ran = D.diagnose(env, policy, level, steps, SEED)
+        if device != "cpu":
+            torch.cuda.synchronize()
+    if device != "cpu":
+        _expect_launches("diag_parkour", c, ran * 4)
+        if c.dynamics_calls_with_ceiling != c.launches["dynamics"]:
+            raise AssertionError("diag_parkour: kernel B ran without the "
+                                 "ceiling")
+    total = out["first_episodes_done"] + out["still_alive"]
+    attributed = sum(out["reasons"].values())
+    if total != num_envs or attributed != out["first_episodes_done"] or sum(
+            out["binding_cstr"].values()) != out["first_episodes_done"]:
+        raise AssertionError(f"diag_parkour: attributions do not sum to the "
+                             f"{num_envs} envs: {out}")
+    return dict(terrain=terrain, level=level, num_envs=num_envs,
+                steps=steps, steps_run=ran, launches=c.launches,
+                dynamics_calls_with_ceiling=c.dynamics_calls_with_ceiling,
+                build_s=build_s, seconds=c.seconds, rollout_s=c.seconds,
+                env_steps_per_s=ran * num_envs / c.seconds,
+                ms_per_policy_step=1e3 * c.seconds / ran,
+                last_call=_last_call_check(c, "diag_parkour"), diag=out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
@@ -1537,6 +1778,23 @@ def main(argv=None) -> int:
               "seconds": time.perf_counter() - t0})
         return results[phase]
 
+    # the policies that the eval phases load: go1_mob's and parkour's
+    ckpt_dir = tempfile.mkdtemp(prefix="wtw_chip_smoke_policies_")
+    ckpt = {k: os.path.join(ckpt_dir, f"{k}.pt") for k in ("go1_mob",
+                                                           "parkour")}
+    try:
+        return _run_all(run, results, model, go2, robots, new_kernel_phases,
+                        multi_kernel_phases, dev, ckpt, shape, smi_line,
+                        device_name)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def _run_all(run, results, model, go2, robots, new_kernel_phases,
+             multi_kernel_phases, dev, ckpt, shape, smi_line, device_name):
+    """Every phase after the build, the kernels line and the result line
+    (`main`'s full run)."""
+    from wtw_tpu_torch.physics import kernels as K
     for phase, fn in (("kernel_a", phase_kernel_a), ("kernel_b", phase_kernel_b),
                       ("ragged", phase_ragged), ("rollout", phase_rollout)):
         run(phase, fn, model, dev)
@@ -1549,14 +1807,16 @@ def main(argv=None) -> int:
                       ("kernel_b_ceiling", phase_kernel_b_ceiling),
                       ("parkour_rollout", phase_parkour_rollout)):
         run(phase, fn, go2, dev)
-    pk = run("parkour_training", phase_parkour_training)
+    pk = run("parkour_training", phase_parkour_training,
+             checkpoint_to=ckpt["parkour"])
     _check_launches("parkour training", pk)
     if pk["dynamics_calls_with_ceiling"] != pk["launches"]["dynamics"]:
         raise AssertionError("parkour training: kernel B ran without the "
                              "ceiling")
 
     run("kernel_b_edges", phase_kernel_b_edges, model, dev)
-    mob = run("mob_training", phase_preset_training, "go1_mob")
+    mob = run("mob_training", phase_preset_training, "go1_mob",
+              checkpoint_to=ckpt["go1_mob"])
     _check_launches("go1_mob training", mob)
 
     # the fifth slice: kernels A and B on B1 and the mini-cheetah, Go2
@@ -1615,6 +1875,17 @@ def main(argv=None) -> int:
     kts = run("kernel_b_training_states", phase_kernel_b_training_states,
               dev, kept["go1_flat"]["dynamics"], kept["multi"]["dynamics"])
 
+    # the eighth slice: the eval entry points on the policies trained above
+    ep = run("eval_play", phase_eval_play, ckpt["go1_mob"])
+    eg = run("eval_gaits", phase_eval_gaits, ckpt["go1_mob"])
+    dp = run("diag_parkour", phase_diag_parkour, ckpt["parkour"])
+
+    # both kernels against their plain versions on each eval run's last
+    # kernel B inputs (64, 4000, 32 and 64 envs)
+    eval_states = {f"eval_play_{k}": r["last_call"]
+                   for k, r in ep["runs"].items()}
+    eval_states.update(eval_gaits=eg["last_call"],
+                       diag_parkour=dp["last_call"])
     ka, kb, rg = results["kernel_a"], results["kernel_b"], results["ragged"]
     ka2, kc = results["kernel_a_go2"], results["kernel_b_ceiling"]
     ke = results["kernel_b_edges"]
@@ -1630,7 +1901,8 @@ def main(argv=None) -> int:
     paths = {"go1_flat": tr, "parkour": pk, "go1_mob": mob,
              "terrain": terrain, "terrain_full_rewards": full, **presets,
              "ppo_plus": plus, "ppornn": rnn, "rma": rma, "pbt": pbt,
-             "multi": multi}
+             "multi": multi, "eval_play": ep, "eval_gaits": eg,
+             "diag_parkour": dp}
     by_path = lambda name: {p: r["launches"][name] for p, r in paths.items()}
     per_robot_a = {}
     for k, r in robot_a.items():
@@ -1665,12 +1937,17 @@ def main(argv=None) -> int:
         go1_flat_training_states_bound_ms=kts["go1_flat"]["bound_ms"])
     kernels = [
         dict(name=K.FK.name, route="cuda", source=K.FK.source,
-             replaces=K.FK.replaces, launches=multi["launches"][K.FK.name],
+             replaces=K.FK.replaces, launches=ep["launches"][K.FK.name],
              launches_by_path=by_path(K.FK.name),
              max_abs_err=max([ka["max_abs_err"], ka2["max_abs_err"],
                               rg["kernel_a"]["max_abs_err"],
                               kam["max_abs_err"], kamt["max_abs_err"]]
-                             + [r["max_abs_err"] for r in robot_a.values()]),
+                             + [r["max_abs_err"] for r in robot_a.values()]
+                             + [c["kernel_a_max_abs_err"]
+                                for c in eval_states.values()]),
+             eval_states_max_abs_err={
+                 p: c["kernel_a_max_abs_err"]
+                 for p, c in eval_states.items()},
              tolerance=ka["tolerance"],
              ms=ka2["ms"], kernel_ms=ka2["ms"], device_ms=ka2["device_ms"],
              call_ms=ka2["call_ms"], plain_ms=ka2["plain_ms"],
@@ -1691,10 +1968,14 @@ def main(argv=None) -> int:
              multi_launch_shape=shape[f"{K.FK.name}_multi"], library_ms=None),
         dict(name=K.DYNAMICS.name, route="cuda", source=K.DYNAMICS.source,
              replaces=K.DYNAMICS.replaces,
-             launches=multi["launches"][K.DYNAMICS.name],
+             launches=ep["launches"][K.DYNAMICS.name],
              launches_by_path=by_path(K.DYNAMICS.name),
-             max_abs_err=max(worst_b["max_abs_err"], kc["max_abs_err"],
-                             kc["no_ceiling_max_abs_err"]),
+             max_abs_err=max([worst_b["max_abs_err"], kc["max_abs_err"],
+                              kc["no_ceiling_max_abs_err"]]
+                             + [c["max_abs_err"]
+                                for c in eval_states.values()]),
+             eval_states_max_abs_err={
+                 p: c["max_abs_err"] for p, c in eval_states.items()},
              tolerance=DYN_TOL,
              ms=kc["ms"], kernel_ms=kc["ms"], device_ms=kc["device_ms"],
              call_ms=kc["call_ms"], plain_ms=kc["plain_ms"],

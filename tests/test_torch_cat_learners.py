@@ -381,8 +381,8 @@ def test_parkour_cli_trains_and_resumes_each_algo(algo, task, tmp_path):
     of 2 iterations for all three runs). The CSV
     has the JAX script's columns for these learners: terrain level and
     episode length 0.0, `lvl_*` on the parkour course, no `cross_*`,
-    `ep_*` or `cstr_*`. A JAX `.pkl` to `--resume` is refused (ROADMAP
-    1.6)."""
+    `ep_*` or `cstr_*`. (Resuming a JAX `.pkl` of these learners is
+    tests/test_torch_checkpoint.py's.)"""
     a, b = tmp_path / "a", tmp_path / "b"
     _cli(a, algo, task, 2)
     _cli(b, algo, task, 1)
@@ -407,5 +407,3 @@ def test_parkour_cli_trains_and_resumes_each_algo(algo, task, tmp_path):
                and float(r["mean_episode_length"]) == 0.0 for r in rows)
     assert not any(c.startswith(("cross_", "ep_", "cstr_")) for c in cols)
     assert any(c.startswith("lvl_") for c in cols) == (task == "parkour")
-    with pytest.raises(NotImplementedError, match="1.6"):
-        _cli(b, algo, task, 1, "--resume", str(b / "state_last.pkl"))

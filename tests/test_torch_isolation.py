@@ -8,10 +8,16 @@ go2_flat, b1_flat, mini_cheetah_flat, go2_mob and b1_mob, the last two on
 3 x 3 cells, and the learners ppo_plus and ppornn on the 3 x 5 course,
 rma and a 2-member pbt on go1_flat) on the CPU at 16 envs, 1 iteration
 (2 for pbt, which ends with an exploit) and narrow widths, and one
-iteration of `train_multi` (go1/go2/b1 at 12 envs).
+iteration of `train_multi` (go1/go2/b1 at 12 envs). A second subprocess,
+with the same block, resumes JAX checkpoints (`.pkl`, written by this test
+with the JAX package) through both training CLIs and runs chip_smoke's
+eval phases (play, eval_gaits, diag_parkour) on the CPU on policies it
+trains.
 """
+import gzip
 import json
 import os
+import pickle
 import subprocess
 import sys
 
@@ -102,7 +108,13 @@ def test_port_imports_no_jax_and_trains_on_cpu():
                 "wtw_tpu_torch.learn.cat_ppornn",
                 "wtw_tpu_torch.learn.ppo_rma", "wtw_tpu_torch.learn.pbt",
                 "wtw_tpu_torch.models.multi", "wtw_tpu_torch.envs.multi_env",
-                "wtw_tpu_torch.train_multi"):
+                "wtw_tpu_torch.train_multi",
+                "wtw_tpu_torch.learn.jax_checkpoint",
+                "wtw_tpu_torch.learn.eval_metrics",
+                "wtw_tpu_torch.learn.metrics_caches",
+                "wtw_tpu_torch.utils.monitor", "wtw_tpu_torch.utils.keyboard",
+                "wtw_tpu_torch.play", "wtw_tpu_torch.eval_gaits",
+                "wtw_tpu_torch.diag_parkour", "wtw_tpu_torch.smoke"):
         assert mod in out["modules"]
     assert len(out["multi_rew"]) == 3
     assert all(abs(v) < 1e6 for v in out["multi_rew"])
@@ -152,3 +164,137 @@ def test_port_imports_no_jax_and_trains_on_cpu():
     assert out["launches"] == {"fk": 0, "dynamics": 0}
     assert pk["launches"] == {"fk": 0, "dynamics": 0}
     assert mob["launches"] == {"fk": 0, "dynamics": 0}
+
+
+EVAL_SCRIPT = r"""
+import json, os, sys, tempfile
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "wtw_tpu")
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import chip_smoke
+from wtw_tpu_torch.train import main as train
+from wtw_tpu_torch.train_parkour import main as train_parkour
+stack_a, parkour, out_dir = sys.argv[1:4]
+narrow = ["ac.actor_hidden_dims=32,16", "ac.critic_hidden_dims=32,16",
+          "ac.adaptation_hidden_dims=16", "ppo.num_steps_per_env=4"]
+course = ["terrain.num_levels=3", "terrain.num_terrains=5",
+          "terrain.border_size=4.0"]
+sets = lambda xs: [a for x in xs for a in ("--set", x)]
+train(["--device", "cpu", "--num-envs", "16", "--iterations", "1",
+       "--run-dir", os.path.join(out_dir, "a"), "--resume", stack_a]
+      + sets(narrow))
+train_parkour(["--device", "cpu", "--num-envs", "16", "--iterations", "1",
+               "--horizon", "4", "--run-dir", os.path.join(out_dir, "b"),
+               "--resume", parkour] + sets(course + ["ppo.hidden=32,16"]))
+ck = {k: os.path.join(out_dir, k + ".pt") for k in ("mob", "parkour")}
+chip_smoke.phase_preset_training(
+    "go1_mob", "cpu", num_envs=16, iterations=1, warmup=0,
+    overrides=narrow + ["terrain.num_rows=3", "terrain.num_cols=3"],
+    checkpoint_to=ck["mob"])
+chip_smoke.phase_parkour_training(
+    "cpu", num_envs=16, iterations=1, warmup=0,
+    overrides=course + ["ppo.hidden=32,16"], checkpoint_to=ck["parkour"])
+play = chip_smoke.phase_eval_play(
+    ck["mob"], "cpu", runs=((8, None, True), (12, None, False),
+                            (8, "rand_large", False)), steps=4)
+gaits = chip_smoke.phase_eval_gaits(ck["mob"], "cpu", num_envs=8, steps=4)
+diag = chip_smoke.phase_diag_parkour(ck["parkour"], "cpu", num_envs=16,
+                                     steps=8, overrides=course)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+rows = lambda d: open(os.path.join(out_dir, d, "metrics.csv")).read()
+print(json.dumps({"leaked": leaked, "play": play, "gaits": gaits,
+                  "diag": diag,
+                  "first_row": {d: rows(d).splitlines()[1].split(",")[0]
+                                for d in ("a", "b")}}))
+"""
+
+
+def _jax_slim_files(tmp_path):
+    """Slim checkpoints as tools/slim_checkpoint.py writes them, made with
+    the JAX package at the port's go1_flat and parkour widths (narrow
+    hidden layers): -> (Stack-A path, parkour path)."""
+    import jax
+    import numpy as np
+    from wtw_tpu import config as jcfg
+    from wtw_tpu.envs.constraints import CaTState
+    from wtw_tpu.envs.curriculum import CurriculumState
+    from wtw_tpu.learn import cat_ppo as jcat
+    from wtw_tpu.learn import ppo_cse as jppo
+    from wtw_tpu.models import actor_critic as jac
+    from wtw_tpu_torch.envs import make_legged_env
+    from wtw_tpu_torch.train_parkour import build as build_parkour
+    from wtw_tpu_torch import config as tcfg
+
+    env = make_legged_env(tcfg.go1_flat_config(num_envs=16), device="cpu")
+    ts = jppo.init_train_state(
+        jax.random.PRNGKey(0), env, jppo.PPOArgs(),
+        jac.ACArgs(actor_hidden_dims=(32, 16), critic_hidden_dims=(32, 16),
+                   adaptation_hidden_dims=(16,)))
+    weights = env.init_state(0).curriculum_weights.numpy()
+    stack_a = str(tmp_path / "go1_flat_slim.pkl.gz")
+    with gzip.open(stack_a, "wb") as f:
+        pickle.dump({"slim": True, "ts": jax.device_get(ts),
+                     "curriculum": CurriculumState(weights=weights + 0.5),
+                     "common_step": np.int32(7),
+                     "cfg": jcfg.go1_flat_config()}, f)
+    runner = build_parkour(16, ["terrain.num_levels=3",
+                                "terrain.num_terrains=5",
+                                "terrain.border_size=4.0"], "cpu",
+                           run_dir=str(tmp_path / "p"))
+    penv = runner.env
+    cts = jcat.init_train_state(jax.random.PRNGKey(1), penv,
+                                jcat.CatPPOArgs(hidden=(32, 16)))
+    parkour = str(tmp_path / "parkour_slim.pkl.gz")
+    with gzip.open(parkour, "wb") as f:
+        pickle.dump({"slim": True, "stack": "b", "ts": jax.device_get(cts),
+                     "terrain_level": np.full(16, 1, np.int32),
+                     "terrain_type": np.arange(16, dtype=np.int32) % 5,
+                     "cat": CaTState(running_max=np.ones_like(
+                         penv.cstr.init_state().running_max.numpy())),
+                     "soft_p_progress": np.float32(0.25),
+                     "common_step": np.int32(3), "iteration": 0}, f)
+    return stack_a, parkour
+
+
+def test_port_resumes_jax_files_and_evaluates_without_jax(tmp_path):
+    stack_a, parkour = _jax_slim_files(tmp_path)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", EVAL_SCRIPT, stack_a,
+                          parkour, str(tmp_path)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == []
+    assert out["first_row"] == {"a": "0", "b": "0"}
+    runs = out["play"]["runs"]
+    assert sorted(runs) == ["12_envs", "8_envs", "8_envs_rand_large"]
+    assert runs["8_envs"]["summary"]["gait"]["dominant_gait"] in (
+        "trot", "pace", "bound", "pronk")
+    assert runs["8_envs_rand_large"]["summary"]["sweep"] == "rand_large"
+    assert out["gaits"]["cases"] == 5
+    diag = out["diag"]
+    assert diag["steps_run"] == 8
+    assert diag["diag"]["first_episodes_done"] + diag["diag"][
+        "still_alive"] == 16
+    # every kernel B call of the run carries the parkour ceiling
+    assert diag["dynamics_calls_with_ceiling"] == 8 * 4
+    # the CPU path runs the plain versions: no kernel launches
+    for r in (out["play"], out["gaits"], diag):
+        assert r["launches"] == {"fk": 0, "dynamics": 0}
+    # each eval run's last kernel B inputs were held against the plain
+    # versions at the run's env count, and its seconds split into set-up
+    # and rollouts
+    for r, n in [(runs[k], runs[k]["num_envs"]) for k in runs] + [
+            (out["gaits"], 8), (diag, 16)]:
+        assert r["last_call"]["num_envs"] == n
+        assert r["last_call"]["kernel_a_same_bits"]
+        assert 0 < r["rollout_s"] <= r["seconds"]
+        assert r["build_s"] > 0 and r["env_steps_per_s"] > 0
+    assert diag["last_call"]["with_ceiling"]
+    assert not runs["8_envs"]["last_call"]["with_ceiling"]

@@ -201,23 +201,6 @@ def test_policy_export_drives_deploy_policy(tmp_path):
     np.testing.assert_allclose(deployed(oh), want, atol=1e-5)
 
 
-@pytest.mark.parametrize("cli", ["train", "train_parkour"])
-def test_train_cli_refuses_unported_presets(cli, tmp_path):
-    """Every preset trains now; what the training CLIs still refuse is a
-    JAX `.pkl` to `--resume` (ROADMAP 1.6): unpickling one needs
-    wtw_tpu, flax and optax. Both raise NotImplementedError before reading
-    the file."""
-    pkl = str(tmp_path / "state_last.pkl")
-    if cli == "train":
-        with pytest.raises(NotImplementedError, match="1.6"):
-            build("b1_flat", num_envs=4, device="cpu", run_dir=str(tmp_path),
-                  resume=pkl, overrides=["ppo.num_steps_per_env=2"])
-    else:
-        from wtw_tpu_torch.train_parkour import main as parkour_main
-        with pytest.raises(NotImplementedError, match="1.6"):
-            parkour_main(["--device", "cpu", "--resume", pkl])
-
-
 def test_train_cli_runs_one_iteration(tmp_path):
     from wtw_tpu_torch.train import main
     main(["--device", "cpu", "--num-envs", "4", "--iterations", "1",
@@ -243,7 +226,8 @@ def test_train_cli_go1_mob_runs_and_resumes(tmp_path):
     iteration writes `policy_last.npz` and `state_last.pt`; `--resume` of
     that state continues the iteration count (1, not 0) in the same CSV;
     the same with `--actuator-model-wrapper`, which starts the wrapper's
-    state beside the resumed world. A JAX `.pkl` is refused."""
+    state beside the resumed world. (Resuming a JAX `.pkl` is
+    tests/test_torch_checkpoint.py's.)"""
     ck = os.path.join(str(tmp_path), "checkpoints")
     _mob_cli(tmp_path)
     assert os.path.exists(os.path.join(ck, "policy_last.npz"))
@@ -253,5 +237,3 @@ def test_train_cli_go1_mob_runs_and_resumes(tmp_path):
     with open(os.path.join(str(tmp_path), "metrics.csv")) as f:
         its = [line.split(",")[0] for line in f.read().splitlines()[1:]]
     assert its == ["0", "1", "2"]
-    with pytest.raises(NotImplementedError):
-        _mob_cli(tmp_path, "--resume", os.path.join(ck, "state_last.pkl"))

@@ -240,7 +240,8 @@ def _train_cli(run_dir, iterations, *extra):
 def test_train_cli_rma_and_pbt_train_and_resume(mode, tmp_path):
     """`train --algo rma` and `train --pbt 2` on the CPU: 2 iterations
     straight equal 1, `--resume` of the port's own state, 1 (every weight,
-    the iteration count); a JAX `.pkl` is refused (ROADMAP 1.6)."""
+    the iteration count); a JAX `.pkl` is refused: the JAX package writes
+    no resumable RMA or PBT state."""
     flag = ["--algo", "rma"] if mode == "rma" else ["--pbt", "2"]
     name = "rma_state.pt" if mode == "rma" else "pbt_state.pt"
     a, b = tmp_path / "a", tmp_path / "b"
@@ -256,5 +257,5 @@ def test_train_cli_rma_and_pbt_train_and_resume(mode, tmp_path):
         net = "model" if mode == "rma" else "ac"
         for k in x[net]:
             torch.testing.assert_close(x[net][k], y[net][k], rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="1.6"):
+    with pytest.raises(ValueError, match="writes no"):
         _train_cli(b, 1, *flag, "--resume", str(b / "state_last.pkl"))

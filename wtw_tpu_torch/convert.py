@@ -74,6 +74,14 @@ def world_from_jax(world, device="cpu", seed: int = 0) -> WorldState:
                       gen=_generator(dev, seed))
 
 
+def actuator_state_from_jax(ws, device="cpu"):
+    """JAX `ActuatorModelState` (numpy leaves) -> the port's."""
+    from .envs.wrappers import ActuatorModelState
+    dev = torch.device(device)
+    return ActuatorModelState(action_buffer=_tensor(ws.action_buffer, dev),
+                              prev_actions=_tensor(ws.prev_actions, dev))
+
+
 def actuator_params_from_jax(params) -> Dict[str, torch.Tensor]:
     """JAX actuator-net parameters {'w0': (6, 32), 'b0': (32,), ...}
     (numpy leaves, as `wtw_tpu.models.actuator_net.load_actuator_net` gives

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from . import ppo_cse
-from .runner import _sync, load_checkpoint, world_blob, world_from_blob
+from .runner import (_no_jax_state, _sync, load_checkpoint, world_blob,
+                     world_from_blob)
 
 
 @dataclass(frozen=True)
@@ -137,6 +138,7 @@ class Population:
         return path
 
     def load(self, path):
+        _no_jax_state(path, "population")
         dev = self.env.device
         blob = load_checkpoint(path, dev)
         if len(blob["members"]) != len(self.members):

@@ -40,6 +40,10 @@ class PPOArgs:
     max_grad_norm: float = 1.0
     # RunnerArgs (ppo_cse/__init__.py:46)
     num_steps_per_env: int = 24
+    # eval envs act with the teacher (the true privileged obs in place of
+    # the adaptation module's estimate) instead of the student
+    # (ppo_cse/__init__.py:139-145)
+    eval_expert: bool = False
     # clamp of the learned policy std after each update (the JAX package's
     # stabilizer, not in the reference)
     std_range: Optional[tuple] = (0.05, 2.0)
@@ -141,7 +145,15 @@ class PPO:
             actions = ac.sample_actions(mean, std, self.gen)
             logp = ac.log_prob(mean, std, actions)
             values = model.evaluate(obs_h, priv)
-            world, next_obs, rew, done, info = env.step(world, actions)
+            # train/eval split (ppo_cse/__init__.py:136-146): the trailing
+            # eval envs act with the sampled student, or with the teacher
+            # under eval_expert; only the train envs enter the batch
+            exec_actions = actions
+            if args.eval_expert and n_tr < actions.shape[0]:
+                t_mean = model.actor_mean(obs_h[n_tr:], priv[n_tr:])
+                exec_actions = torch.cat([actions[:n_tr], ac.sample_actions(
+                    t_mean, std[n_tr:], self.gen)])
+            world, next_obs, rew, done, info = env.step(world, exec_actions)
             # timeout bootstrapping (ppo.py:84-86)
             rew_b = rew + args.gamma * values * info["time_outs"]
             steps.append((obs_h[:n_tr], priv[:n_tr], actions[:n_tr],

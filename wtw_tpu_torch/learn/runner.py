@@ -2,11 +2,15 @@
 go1_gym_learn/ppo_cse/__init__.py Runner:107-296).
 
 Runs train iterations, writes one CSV row per logged iteration to
-`<run_dir>/metrics.csv`, and saves exact-resume checkpoints
+`<run_dir>/metrics.csv` (with `eval_rew_total` and `eval_num_episodes` when
+the env splits off eval envs, and a console table of the reward terms every
+`console_table_freq` iterations), and saves exact-resume checkpoints
 (`checkpoints/state_<tag>.pt`: learner, optimizers, env state and both
 generators) plus the deployment export `checkpoints/policy_<tag>.npz` in the
 JAX runner's key layout (`adaptation/w{i}`, `actor/b{i}`, ..., weights
 stored (in, out)), which `wtw_tpu/deploy/policy.py` loads unchanged.
+`load` also takes the JAX runner's checkpoints (`.pkl`, `.pkl.gz`; see
+`jax_checkpoint.py`).
 """
 from __future__ import annotations
 
@@ -20,8 +24,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import convert
 from ..models import actor_critic as ac
-from . import ppo_cse
+from . import jax_checkpoint, ppo_cse
 from .ppo_rma import RMA
 
 
@@ -32,6 +37,7 @@ class RunnerArgs:
     run_dir: str = "runs/default"
     resume: bool = False
     resume_path: Optional[str] = None
+    console_table_freq: int = 0           # the reward terms as a table
 
 
 def _sync(device):
@@ -74,13 +80,24 @@ def world_from_blob(blob: dict, device):
 
 
 def load_checkpoint(path: str, device) -> dict:
-    """`torch.load` of one of the port's own checkpoints; a JAX `.pkl`
-    raises NotImplementedError (ROADMAP 1.6)."""
-    if path.endswith((".pkl", ".pkl.gz")):
-        raise NotImplementedError(
-            f"{path}: resuming from a JAX checkpoint (.pkl) is not ported "
-            f"yet (ROADMAP 1.6); resume from the port's own .pt")
+    """`torch.load` of one of the port's own checkpoints, or the blob of a
+    JAX one (`.pkl`, `.pkl.gz`: numpy arrays and records,
+    `jax_checkpoint.load`)."""
+    if jax_checkpoint.is_jax_checkpoint(path):
+        return jax_checkpoint.load(path)
     return torch.load(path, map_location=device, weights_only=False)
+
+
+def _no_jax_state(path: str, what: str):
+    if jax_checkpoint.is_jax_checkpoint(path):
+        raise ValueError(f"{path}: the JAX package writes no {what} state to "
+                         f"resume (scripts/train.py); resume from the port's "
+                         f"own .pt")
+
+
+def _reseed_note(seed: int) -> str:
+    return (f"resumed a JAX checkpoint: the generators restart from seed "
+            f"{seed} (a JAX PRNG key has no torch counterpart)")
 
 
 class Runner:
@@ -88,6 +105,7 @@ class Runner:
                  ac_args: ac.ACArgs = ac.ACArgs(),
                  runner_args: RunnerArgs = RunnerArgs(), seed: int = 0):
         self.env, self.args, self.runner_args = env, args, runner_args
+        self.seed = seed
         self.world = env.init_state(seed)
         self.world, self.obs_dict = env.get_observations(self.world)
         self.ppo = ppo_cse.PPO(env, args, ac_args, seed=seed)
@@ -133,12 +151,22 @@ class Runner:
                 for i, name in enumerate(self.env.reward_names):
                     row[f"rew_{name}"] = float(ep[i])
                 row["rew_total"] = float(ep[-1])
+                # the eval stream (ppo_cse/__init__.py:163-180)
+                if getattr(self.env, "num_eval_envs", 0) > 0:
+                    row["eval_rew_total"] = float(
+                        stats["eval_episode_reward_sums"][-1])
+                    row["eval_num_episodes"] = f("eval_num_episodes")
                 self._write_csv(row)
                 log_fn(f"it {it:6d} | {row['steps_per_s']:.0f} steps/s | "
                        f"rew {row['mean_step_reward']:.4f} | "
                        f"ep_rew {row['rew_total']:.2f} | "
                        f"vloss {row['value_loss']:.4f} | "
                        f"adapt {row['adaptation_loss']:.5f}")
+                if ra.console_table_freq and it % ra.console_table_freq == 0:
+                    from ..utils.monitor import monitor_table
+                    log_fn(monitor_table(
+                        {k: v for k, v in row.items()
+                         if k.startswith("rew_")}, title=f"iter {it}"))
             if ra.save_interval and it % ra.save_interval == 0 and it > 0:
                 self.save(it)
         self.save("last")
@@ -179,8 +207,11 @@ class Runner:
         return path
 
     def load(self, path):
-        """Restore a checkpoint of the port's own (`state_<tag>.pt`)."""
+        """Restore a checkpoint of the port's own (`state_<tag>.pt`), or a
+        JAX runner's (`.pkl`, `.pkl.gz`)."""
         blob = load_checkpoint(path, self.env.device)
+        if jax_checkpoint.is_jax_checkpoint(path):
+            return self._load_jax(blob)
         self.ppo.load_state(blob)
         world = world_from_blob(blob["world"], self.env.device)
         # a run that adds or drops the actuator-model wrapper starts or
@@ -192,6 +223,40 @@ class Runner:
             world = world[0]
         self.world = world
         self.obs_dict = blob["obs_dict"]
+        return self
+
+    def _load_jax(self, blob: dict):
+        """The JAX runner's `load` (`wtw_tpu/learn/runner.py:240-270`): the
+        learner state (the adaptive lr and the iteration included; the
+        pre-round-3 adaptation moments migrated); a slim file
+        (`tools/slim_checkpoint.py`) carries the curriculum weights and the
+        reward-anneal clock onto fresh envs, whose observations are
+        recomputed; a full file carries the world and its observations."""
+        env, dev = self.env, self.env.device
+        self.ppo.load_state(jax_checkpoint.learner_state(
+            blob["ts"], self.ppo, self.seed))
+        wrapped = hasattr(env, "init_wrapper_state")
+        if blob.get("slim"):
+            world = self.world[0] if wrapped else self.world
+            world = dataclasses.replace(
+                world, curriculum_weights=torch.from_numpy(np.array(
+                    blob["curriculum"].weights, np.float32)).to(dev),
+                common_step=int(np.asarray(blob["common_step"])))
+            if wrapped:
+                world = (world, self.world[1])
+            self.world, self.obs_dict = env.get_observations(world)
+        else:
+            jw = blob["world"]
+            world = convert.world_from_jax(
+                jw[0] if isinstance(jw, tuple) else jw, dev, self.seed)
+            if wrapped:
+                world = (world, convert.actuator_state_from_jax(jw[1], dev)
+                         if isinstance(jw, tuple)
+                         else env.init_wrapper_state())
+            self.world = world
+            self.obs_dict = {k: torch.from_numpy(np.array(
+                v, np.float32)).to(dev) for k, v in blob["obs_dict"].items()}
+        print(_reseed_note(self.seed))
         return self
 
     def get_inference_policy(self):
@@ -249,6 +314,7 @@ class RMARunner:
         return path
 
     def load(self, path):
+        _no_jax_state(path, "RMA")
         blob = load_checkpoint(path, self.env.device)
         self.learner.load_state(blob)
         self.world = world_from_blob(blob["world"], self.env.device)

@@ -12,8 +12,11 @@ mini-cheetah on flat ground. `--algo rma` trains the teacher-student RMA
 learner (`<run-dir>/rma_state.pt`), `--pbt N` a population of N PPO
 learners (`<run-dir>/pbt_state.pt`). Runs on the CUDA device unless
 `--device cpu` is given. `--resume` takes the port's own checkpoint of the
-same kind (`state_<tag>.pt`, `rma_state.pt`, `pbt_state.pt`); a JAX `.pkl`
-raises NotImplementedError (ROADMAP 1.6).
+same kind (`state_<tag>.pt`, `rma_state.pt`, `pbt_state.pt`), or for the
+PPO learner a checkpoint of the JAX runner (`state_<tag>.pkl`, or a slim
+`.pkl.gz` of `tools/slim_checkpoint.py`), as `scripts/train.py` does:
+
+    python -m wtw_tpu_torch.train --preset go1_mob --resume checkpoints/go1_mob_r5b_cot.pkl.gz
 """
 from __future__ import annotations
 
@@ -35,7 +38,8 @@ def build(preset: str, num_envs=None, overrides=(), device=None, seed=0,
     RunnerArgs, `ac.*` to ACArgs, the rest to the Cfg tree. `control`
     overrides the control type ("P" or "actuator_net"),
     `actuator_model_wrapper` wraps the env in `ActuatorModelWrapper`, and
-    `resume` is a checkpoint of the port's own to continue from. The
+    `resume` is a checkpoint to continue from (the port's own, or for the
+    PPO learner a JAX runner's `.pkl` / `.pkl.gz`). The
     runner is dispatched as scripts/train.py does: `pbt` > 0 gives a
     `learn.pbt.Population` of that many members (`pbt_args`, a PBTArgs,
     sets the rest), else `algo="rma"` an `RMARunner`, else the PPO
@@ -96,7 +100,9 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--run-dir", default=None)
     ap.add_argument("--resume", default=None,
-                    help="checkpoint of the port (state_<tag>.pt) to resume")
+                    help="checkpoint to resume: the port's (state_<tag>.pt, "
+                         "rma_state.pt, pbt_state.pt) or a JAX runner's "
+                         "(.pkl, .pkl.gz)")
     ap.add_argument("--log-freq", type=int, default=10)
     ap.add_argument("--save-interval", type=int, default=400)
     ap.add_argument("--control", default=None, choices=["P", "actuator_net"],

@@ -17,9 +17,11 @@ given. Writes `<run-dir>/metrics.csv` with the JAX script's columns
 (per-track-type `lvl_*` / `cross_*` included; `--algo ppo_plus|ppornn`
 write what the JAX script writes for them: a terrain level and episode
 length of 0.0 and no `cross_*`, `ep_*` or `cstr_*` columns) and
-exact-resume checkpoints `<run-dir>/state_<tag>.pt` (`--resume` takes one
-of those). A JAX `.pkl` to `--resume` raises NotImplementedError (ROADMAP
-1.6).
+exact-resume checkpoints `<run-dir>/state_<tag>.pt`. `--resume` takes one
+of those, or a checkpoint of the JAX script (`state_<tag>.pkl`, or a slim
+`.pkl.gz` of `tools/slim_checkpoint.py`) for the same `--algo`:
+
+    python -m wtw_tpu_torch.train_parkour --resume checkpoints/parkour_v2_r5.pkl.gz
 """
 from __future__ import annotations
 
@@ -92,7 +94,7 @@ class ParkourRunner:
     def __init__(self, env, learner, run_dir: str, seed: int = 0,
                  log_freq: int = 10, save_interval: int = 400):
         self.env, self.learner = env, learner
-        self.run_dir, self.log_freq = run_dir, log_freq
+        self.run_dir, self.log_freq, self.seed = run_dir, log_freq, seed
         self.save_interval = save_interval
         os.makedirs(run_dir, exist_ok=True)
         self.world = env.init_state(seed)
@@ -205,12 +207,17 @@ class ParkourRunner:
         return path
 
     def load(self, path):
+        """Restore a checkpoint of this runner's (`state_<tag>.pt`) or of
+        the JAX script (`.pkl`, `.pkl.gz`)."""
         from .envs.constraints import CaTState
         from .envs.parkour_env import ParkourEnvState, ParkourWorld
+        from .learn import jax_checkpoint
         from .learn.runner import load_checkpoint
         from .physics import PhysicsState
         dev = self.env.device
         blob = load_checkpoint(path, dev)
+        if jax_checkpoint.is_jax_checkpoint(path):
+            return self._load_jax(blob)
         self.learner.load_state(blob)
         wb = blob["world"]
         env = dict(wb["env"])
@@ -222,6 +229,53 @@ class ParkourRunner:
             soft_p_progress=wb["soft_p_progress"], hist_obs=wb["hist_obs"],
             common_step=wb["common_step"], gen=gen)
         self.obs_n = blob["obs_n"]
+        return self
+
+    def _load_jax(self, blob: dict):
+        """The JAX script's resume (scripts/train_parkour.py:151-183). A
+        slim file carries the learner, the CaT running maxima, the soft-p
+        progress and the anneal clock, with the carried dones zeroed and
+        every env re-seated at the file's terrain levels and types (fitted
+        to this env count by `np.resize`; a level or type past this map
+        takes its last, as the JAX gather clamps); a full file carries the
+        learner, the world and the normalized observations. Iterations
+        continue from the learner's count, which the JAX script's
+        `iteration` equals."""
+        from .convert import parkour_world_from_jax
+        from .envs.constraints import CaTState
+        from .learn import jax_checkpoint
+        from .learn.cat_ppo import rms_norm
+        from .learn.runner import _reseed_note
+        env, ln, dev = self.env, self.learner, self.env.device
+        n = env.num_envs
+        slim = bool(blob.get("slim"))
+        ln.load_state(jax_checkpoint.learner_state(
+            blob["ts"], ln, self.seed, num_envs=n if slim else None))
+        if slim:
+            n_lvl, n_typ = env.terrain_origins.shape[:2]
+
+            def fit_n(a, top):
+                a = np.resize(np.asarray(a), (n,) + np.shape(a)[1:])
+                return torch.from_numpy(np.minimum(a, top - 1)).to(dev)
+
+            world = dataclasses.replace(
+                self.world,
+                cat=CaTState(running_max=torch.from_numpy(np.array(
+                    blob["cat"].running_max, np.float32)).to(dev)),
+                soft_p_progress=np.float32(np.asarray(
+                    blob["soft_p_progress"])),
+                common_step=int(np.asarray(blob["common_step"])))
+            self.world = env.restore_terrain_state(
+                world, fit_n(blob["terrain_level"], n_lvl),
+                fit_n(blob["terrain_type"], n_typ))
+            self.obs_n = rms_norm(ln.obs_rms,
+                                  env.get_observations(self.world))
+        else:
+            self.world = parkour_world_from_jax(blob["world"], dev,
+                                                self.seed)
+            self.obs_n = torch.from_numpy(np.array(
+                blob["obs_n"], np.float32)).to(dev)
+        print(_reseed_note(self.seed))
         return self
 
 
@@ -307,17 +361,14 @@ def main(argv=None):
     ap.add_argument("--log-freq", type=int, default=10)
     ap.add_argument("--save-interval", type=int, default=400)
     ap.add_argument("--resume", default=None,
-                    help="a state_<tag>.pt written by this script")
+                    help="a state_<tag>.pt written by this script, or a "
+                         "JAX checkpoint (.pkl, .pkl.gz) of the same --algo")
     ap.add_argument("--set", action="append", default=[], metavar="K=V",
                     help="ParkourCfg override (ppo.* for CatPPOArgs), e.g. "
                          "--set only_forwards=true --set terrain.num_levels=6")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if args.resume and not args.resume.endswith(".pt"):
-        raise NotImplementedError(
-            "--resume takes the port's own .pt checkpoints; a JAX .pkl "
-            "state is not converted yet (ROADMAP 1.6)")
     runner = build(args.num_envs, args.set, args.device, args.seed,
                    args.run_dir, args.horizon, args.iterations,
                    args.anneal_iterations, args.terrain, args.easy_mode,
