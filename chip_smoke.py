@@ -126,9 +126,39 @@ Phases, each printing one JSON line with its seconds:
    50 steps): exactly steps run x 4 launches, every kernel B call with the
    ceiling, and the first episodes' attributions summing to the 64 envs.
 
-After each eval run (each of eval_play's three, eval_gaits, diag_parkour)
-both kernels are held against their plain versions on the inputs of that
-run's last kernel B call, at the run's own env count and under the bars of
+29. vision_generate: `wtw_tpu_torch.train_vision generate` (its `main`)
+   with the policy of phase 11 as the expert, 1024 envs, 128 steps (the
+   JAX run's 512 cut to 128: a 0.44 GB demo buffer), on the full parkour
+   course: kernel B 4 launches a step, every call with the ceiling, kernel
+   A 5 (4 substeps and the depth camera's frame);
+30. vision_train: `train_vision train` on those demos at `DDPGArgs`'
+   defaults (the 256-step ring, batch 64 x 5, 10 critics, 8 updates an
+   env step), 1024 envs, 16,384 env steps (16 collect steps), 50 BC
+   batches and an 8,192-step actor hold, so 8 update rounds hold the actor
+   and 8 update it: the same launches a step, finite losses, the student
+   moved off its initial weights;
+31. vision_eval_student and vision_eval_expert: `train_vision eval`, 1024
+   envs, 100 steps, on the student of phase 30 (a frame every step: 5
+   kernel A launches a step) and on the expert (4); every value finite;
+32. actuator_train: `wtw_tpu_torch.learn.actuator_train` (its `main`), 20
+   epochs on a synthetic log from seed 0 on the card: its `.npz` loads
+   through `models/actuator_net.py`, the test MAE below the labels' std;
+33. sweep: `wtw_tpu_torch.sweep` (its `main`), a 2-point grid of go1_flat
+   at 1024 envs, 1 iteration each, every point a subprocess: summary.csv
+   with 2 rows.
+
+Each vision run also holds kernel A against its plain version on the
+renderer's last inputs (under FK_TOL, or 2 fp32 ulps of the largest
+coordinate where the envs sit far out: `_position_bar`) and times the renderer on them
+(`render_ms`, CUDA events; `render_peak_bytes`), and reports env steps/s
+over its rollout seconds (set-up apart: the env, the expert, the demo
+file, and in train the BC batches), `max_memory_allocated`, and in train
+the ms of a BC batch and of an update round and the ring's and demos'
+bytes.
+
+After each eval run (each of eval_play's three, eval_gaits, diag_parkour,
+and the four vision runs) both kernels are held against their plain
+versions on the inputs of that run's last kernel B call, at the run's own env count and under the bars of
 kernel_b_training_states (diag_parkour's with the ceiling), and kernel A
 relaunched on those states must give the bits that call was given
 (`last_call`; the kernels line's `eval_states_max_abs_err`). Each eval run
@@ -158,9 +188,10 @@ and the per-case times (`kernel_ms`, `ceiling_ms`, `go1_ms`, `flat_ms`,
 are device times per launch;
 before the kernels gave each env a team of lanes they were the
 events-over-calls times that are now `call_ms`. The line's `launches` is
-each kernel's count in the newest slice's path (eval_play's three runs),
-and `launches_by_path` holds the counts of every training and eval
-phase.
+each kernel's count in the newest slice's path (the four vision runs),
+`launches_by_path` holds the counts of every training, eval and vision
+phase, and `renderer_max_abs_err` and `render_ms` kernel A's error and
+the renderer's ms on each vision run's last frame.
 
 Then the kernels line, the nvidia-smi line, and the result line. Exits
 non-zero, with no result line, when there is no CUDA device, when the port
@@ -178,6 +209,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -1504,10 +1536,12 @@ class Timed:
     """The seconds spent in `module.<name>` inside the block (the card
     synced before each call's clock stops), by wrapping it: an eval entry
     point's set-up (`build`: the checkpoint, the env, the map on the card),
-    which is not its rollout."""
+    which is not its rollout. `module` may be a class (a method); `calls`
+    counts the calls and `result` keeps the last one's return value."""
 
     def __init__(self, module, name):
         self.module, self.name, self.seconds = module, name, 0.0
+        self.calls, self.result = 0, None
 
     def __enter__(self):
         self.real = getattr(self.module, self.name)
@@ -1515,11 +1549,13 @@ class Timed:
         def timed(*a, **kw):
             t0 = time.perf_counter()
             try:
-                return self.real(*a, **kw)
+                self.result = self.real(*a, **kw)
+                return self.result
             finally:
                 if torch.cuda.is_available():
                     torch.cuda.synchronize()
                 self.seconds += time.perf_counter() - t0
+                self.calls += 1
         setattr(self.module, self.name, timed)
         return self
 
@@ -1685,6 +1721,287 @@ def phase_diag_parkour(checkpoint, device="cuda", num_envs=64, steps=700,
                 env_steps_per_s=ran * num_envs / c.seconds,
                 ms_per_policy_step=1e3 * c.seconds / ran,
                 last_call=_last_call_check(c, "diag_parkour"), diag=out)
+
+
+# ---------------------------------------------------------------------------
+# the ninth slice: vision distillation, actuator_train and sweep
+# ---------------------------------------------------------------------------
+
+
+class RenderedFrames:
+    """The depth camera's kernel A calls inside the block: wraps
+    `envs.depth.sphere_centres` (the renderer's call site of kernel A),
+    counting the frames and keeping the last frame's inputs."""
+
+    def __enter__(self):
+        from wtw_tpu_torch.envs import depth
+        self.depth, self.real = depth, depth.sphere_centres
+        self.frames, self.last = 0, None
+
+        def watched(*args):
+            self.frames += 1
+            self.last = args
+            return self.real(*args)
+        depth.sphere_centres = watched
+        return self
+
+    def __exit__(self, *exc):
+        self.depth.sphere_centres = self.real
+
+
+def _render_check(frames, env, what, device):
+    """Kernel A against its plain version on the renderer's last inputs
+    (the sphere centres: under FK_TOL, or 2 fp32 ulps of the largest
+    coordinate where that is larger, `_position_bar`), and the renderer's
+    device ms per frame on them (CUDA events around 5 frames; these
+    launches are not counted)."""
+    from wtw_tpu_torch.envs import depth
+    from wtw_tpu_torch.physics import kernels as K
+    model, pos, quat, jq = frames.last
+    fk_in = torch.cat([pos, quat, jq], dim=1).T.contiguous()
+    got, ref = K.fk(model, fk_in)[1], K.fk_plain(model, fk_in)[1]
+    err = float((got - ref).abs().max())
+    bar = _position_bar(fk_in[:3])
+    if err > bar:
+        raise AssertionError(f"{what}: kernel A on the renderer's last inputs "
+                             f"is {err} off its plain version (bar {bar})")
+    out = dict(frames=frames.frames, num_envs=pos.shape[0],
+               kernel_a_max_abs_err=err, position_bar=bar, render_ms=None)
+    if device != "cpu":
+        render = depth.make_depth_fn(env.hf, depth.DepthCameraCfg(),
+                                     model=env.model)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out["render_ms"] = cuda_ms(lambda: render(pos, quat, jq), iters=5,
+                                   warmup=1)
+        out["render_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    return out
+
+
+def _setup_s(*timers):
+    return types.SimpleNamespace(seconds=sum(t.seconds for t in timers))
+
+
+def _sets(overrides):
+    return [a for x in overrides for a in ("--set", x)]
+
+
+def _vision_run(argv, device, what, fk_per_step, steps, extra_timers=()):
+    """`train_vision.main(argv)` inside the counters: -> (its return value,
+    the counters, the build_env timer, the frames, the extra timers)."""
+    from wtw_tpu_torch import train_vision as TV
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    import contextlib
+    with contextlib.ExitStack() as stack:
+        c = stack.enter_context(Counted())
+        b = stack.enter_context(Timed(TV, "build_env"))
+        frames = stack.enter_context(RenderedFrames())
+        timers = [stack.enter_context(Timed(m, n)) for m, n in extra_timers]
+        out = _quiet(TV.main, argv + ["--device", device])
+        if device != "cpu":
+            torch.cuda.synchronize()
+    if device != "cpu":
+        _expect_fk_dyn(what, c, fk_per_step * steps, 4 * steps)
+        if c.dynamics_calls_with_ceiling != c.launches["dynamics"]:
+            raise AssertionError(f"{what}: kernel B ran without the ceiling")
+    return out, c, b, frames, timers
+
+
+def _expect_fk_dyn(what, counted, n_fk, n_dyn):
+    want = {"fk": n_fk, "dynamics": n_dyn}
+    if counted.launches != want:
+        raise AssertionError(f"{what}: launches {counted.launches}, expected "
+                             f"{want}")
+
+
+def _vision_record(c, b, frames, env, what, device, env_steps, policy_steps,
+                   setup):
+    """A vision run's counts, rates, peak memory and checks: both kernels
+    on its last kernel B inputs, and kernel A on the renderer's last inputs
+    where it rendered."""
+    rec = dict(launches=c.launches,
+               dynamics_calls_with_ceiling=c.dynamics_calls_with_ceiling,
+               **_rollout_rates(c, setup, env_steps, policy_steps),
+               max_memory_allocated=(torch.cuda.max_memory_allocated()
+                                     if device != "cpu" else None),
+               last_call=_last_call_check(c, what))
+    if frames.frames:
+        rec["renderer"] = _render_check(frames, env, what, device)
+    return rec
+
+
+def phase_vision_generate(checkpoint, demos, device="cuda", num_envs=1024,
+                          steps=128, overrides=()):
+    """`train_vision generate` (its `main`) with the parkour policy of phase
+    11 as the expert: `steps` env steps of demos at `num_envs` into the
+    port's demo file `demos`. Kernel B launches 4 a step, every call with
+    the ceiling; kernel A 5 a step (4 substeps and the rendered frame)."""
+    from wtw_tpu_torch import train_vision as TV
+    argv = ["generate", "--checkpoint", checkpoint, "--demos", demos,
+            "--num-envs", str(num_envs), "--steps", str(steps)] + _sets(
+                overrides)
+    out, c, b, frames, (le,) = _vision_run(
+        argv, device, "vision_generate", 5, steps,
+        extra_timers=[(TV, "load_expert")])
+    if frames.frames != steps or out["filled"] != steps:
+        raise AssertionError(f"vision_generate: {frames.frames} frames, "
+                             f"{out['filled']} steps stored")
+    return dict(num_envs=num_envs, steps=steps, buffer_bytes=out["nbytes"],
+                **_vision_record(c, b, frames, b.result, "vision_generate",
+                                 device, steps * num_envs, steps,
+                                 _setup_s(b, le)))
+
+
+def phase_vision_train(demos, out_dir, device="cuda", num_envs=1024,
+                       env_steps=16384, bc_steps=50, actor_delay=8192,
+                       overrides=()):
+    """`train_vision train` (its `main`) on the demos of vision_generate at
+    `DDPGArgs`' defaults (a 256-step ring): `bc_steps` BC batches, then
+    env_steps / num_envs collect steps, each followed by an update round
+    of 8 substeps; the actor is held for `actor_delay` env steps, so both
+    the held and the live rounds run. Losses finite, the student moved off
+    its initial weights, launches exact (5 kernel A, 4 kernel B a step)."""
+    from wtw_tpu_torch import train_vision as TV
+    from wtw_tpu_torch.learn import ddpg_demos as D
+    steps = env_steps // num_envs
+    argv = ["train", "--demos", demos, "--out", out_dir, "--num-envs",
+            str(num_envs), "--env-steps", str(env_steps), "--bc-steps",
+            str(bc_steps), "--actor-delay", str(actor_delay)] + _sets(
+                overrides)
+    out, c, b, frames, (ld, bc, ur, au) = _vision_run(
+        argv, device, "vision_train", 5, steps, extra_timers=[
+            (D, "load_buffer"), (D.DDPGLearner, "bc_update"),
+            (D.DDPGLearner, "update_round"), (D.DDPGLearner, "actor_update")])
+    ln = out["learner"]
+    losses = _finite({k: float(v) for k, v in ln.last_losses.items()},
+                     "vision_train")
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    init = D.Student(b.result.num_actions, ln.args, gen).state_dict()
+    moved = sorted(k for k, v in ln.student.state_dict().items()
+                   if not torch.equal(v.cpu(), init[k]))
+    if not moved:
+        raise AssertionError("vision_train: the student kept its initial "
+                             "weights")
+    # rounds once `learning_starts` env steps are in; the actor's after the
+    # hold
+    rounds = [t for t in range(steps)
+              if (t + 1) * num_envs > ln.args.learning_starts]
+    want = (bc_steps, len(rounds),
+            sum(t >= actor_delay // num_envs for t in rounds))
+    if (bc.calls, ur.calls, au.calls) != want:
+        raise AssertionError(f"vision_train: {bc.calls} BC batches, "
+                             f"{ur.calls} update rounds, {au.calls} actor "
+                             f"updates; expected {want}")
+    saved = torch.load(out["out"], map_location="cpu", weights_only=True)
+    return dict(num_envs=num_envs, env_steps=env_steps, steps=steps,
+                bc_batches=bc.calls, update_rounds=ur.calls,
+                actor_updates=au.calls, losses=losses,
+                moved_tensors=len(moved), saved_tensors=len(saved["student"]),
+                ring_bytes=out["ring"].nbytes(),
+                demo_bytes=out["demos"].nbytes(),
+                bc_ms=1e3 * bc.seconds / max(bc.calls, 1),
+                update_round_ms=1e3 * ur.seconds / max(ur.calls, 1),
+                **_vision_record(c, b, frames, b.result, "vision_train",
+                                 device, steps * num_envs, steps,
+                                 _setup_s(b, ld, bc)))
+
+
+def phase_vision_eval(policy, device="cuda", num_envs=1024, steps=100,
+                      student=True, overrides=()):
+    """`train_vision eval` (its `main`) on the student of vision_train
+    (`--student`, its frame rendered every step: 5 kernel A launches a
+    step) or on the expert of phase 11 (`--checkpoint`, no camera: 4).
+    Every JSON value finite."""
+    from wtw_tpu_torch import train_vision as TV
+    what = f"vision_eval_{'student' if student else 'expert'}"
+    argv = ["eval", "--student" if student else "--checkpoint", policy,
+            "--num-envs", str(num_envs), "--steps", str(steps)] + _sets(
+                overrides)
+    timers = [] if student else [(TV, "load_expert")]
+    out, c, b, frames, extra = _vision_run(
+        argv, device, what, 5 if student else 4, steps, extra_timers=timers)
+    _finite_values(out, what)
+    if frames.frames != (steps if student else 0):
+        raise AssertionError(f"{what}: {frames.frames} frames rendered")
+    return dict(num_envs=num_envs, steps=steps, result=out,
+                **_vision_record(c, b, frames, b.result, what, device,
+                                 steps * num_envs, steps, _setup_s(b, *extra)))
+
+
+def phase_actuator_train(device="cuda", epochs=20):
+    """`learn.actuator_train` (its `main`) on a synthetic log from seed 0
+    (tests/test_eval_tools.py's law, tau = clip(25 err - 0.6 vel, +-20), 2000
+    steps x 12 joints): the exported `.npz` loads through
+    `models/actuator_net.py` and predicts the test rows with a MAE below
+    the labels' std."""
+    import pickle
+    from wtw_tpu_torch.learn import actuator_train as AT
+    from wtw_tpu_torch.models.actuator_net import (apply_actuator_net,
+                                                   load_actuator_net)
+    rng = np.random.RandomState(SEED)
+    T, nj = 2000, 12
+    q_target = rng.normal(size=(T, nj)).astype(np.float32) * 0.3
+    q = q_target + rng.normal(size=(T, nj)).astype(np.float32) * 0.1
+    qd = rng.normal(size=(T, nj)).astype(np.float32) * 2.0
+    x = AT.build_features(q_target, q, qd)
+    tau = np.zeros((T, nj), np.float32)
+    tau[4:] = np.clip(25.0 * x[..., 0] - 0.6 * x[..., 3], -20, 20)
+    d = tempfile.mkdtemp(prefix="wtw_chip_smoke_actuator_")
+    try:
+        log = os.path.join(d, "log.pkl")
+        with open(log, "wb") as f:
+            pickle.dump({"joint_pos_target": q_target, "joint_pos": q,
+                         "joint_vel": qd, "tau_est": tau}, f)
+        npz = os.path.join(d, "net.npz")
+        t0 = time.perf_counter()
+        out = _quiet(AT.main, ["--log", log, "--out", npz, "--epochs",
+                               str(epochs), "--device", device])
+        seconds = time.perf_counter() - t0
+        params = load_actuator_net(npz, device=device)
+        xs = torch.as_tensor(x[:8], device=device)
+        pred = apply_actuator_net(params, *xs.unbind(-1))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if not (out["mae"] < out["label_std"]) or not bool(
+            torch.isfinite(pred).all()):
+        raise AssertionError(f"actuator_train: test MAE {out['mae']} against "
+                             f"a label std of {out['label_std']}")
+    return dict(epochs=epochs, samples=out["samples"], test_mae=out["mae"],
+                label_std=out["label_std"], train_s=seconds,
+                loaded_shape=list(pred.shape))
+
+
+def phase_sweep(device="cuda", num_envs=1024, overrides=()):
+    """`wtw_tpu_torch.sweep` (its `main`): a 2-point grid of go1_flat
+    (`ppo.learning_rate` 1e-3 and 5e-4), 1 iteration each, every point a
+    `python -m wtw_tpu_torch.train` subprocess on `device`; summary.csv
+    holds 2 rows. (The training path itself is phase 7's; the kernels'
+    launches happen in the subprocesses.)"""
+    import csv
+    from wtw_tpu_torch import sweep
+    d = tempfile.mkdtemp(prefix="wtw_chip_smoke_sweep_")
+    try:
+        t0 = time.perf_counter()
+        cmds, rows = _quiet(sweep.main, [
+            "--preset", "go1_flat", "--num-envs", str(num_envs),
+            "--iterations", "1", "--device", device, "--sweep-dir", d,
+            "-a", "ppo.learning_rate=1e-3,5e-4"] + _sets(overrides))
+        seconds = time.perf_counter() - t0
+        with open(os.path.join(d, "summary.csv")) as f:
+            summary = list(csv.DictReader(f))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if len(summary) != 2 or [r["ppo.learning_rate"] for r in summary] != [
+            "1e-3", "5e-4"]:
+        raise AssertionError(f"sweep: summary.csv rows {summary}")
+    rew = [float(r["mean_step_reward"]) for r in summary]
+    if not all(math.isfinite(v) for v in rew):
+        raise AssertionError(f"sweep: non-finite rewards {rew}")
+    return dict(points=len(cmds), rows=len(summary), seconds=seconds,
+                mean_step_reward=rew,
+                steps_per_s=[float(r["steps_per_s"]) for r in summary])
 
 
 def main(argv=None) -> int:
@@ -1880,12 +2197,35 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
     eg = run("eval_gaits", phase_eval_gaits, ckpt["go1_mob"])
     dp = run("diag_parkour", phase_diag_parkour, ckpt["parkour"])
 
+    # the ninth slice: vision distillation on the parkour policy of phase
+    # 11 (the chip copy has no checkpoints/), then actuator_train and sweep
+    vdir = tempfile.mkdtemp(prefix="wtw_chip_smoke_vision_")
+    try:
+        demos = os.path.join(vdir, "rb_demos.pt")
+        vg = run("vision_generate", phase_vision_generate, ckpt["parkour"],
+                 demos)
+        vt = run("vision_train", phase_vision_train, demos, vdir)
+        ves = run("vision_eval_student", phase_vision_eval,
+                  os.path.join(vdir, "vision_student.pt"))
+        vee = run("vision_eval_expert", phase_vision_eval, ckpt["parkour"],
+                  student=False)
+    finally:
+        shutil.rmtree(vdir, ignore_errors=True)
+    run("actuator_train", phase_actuator_train)
+    run("sweep", phase_sweep)
+    vision = {"vision_generate": vg, "vision_train": vt,
+              "vision_eval_student": ves, "vision_eval_expert": vee}
+
     # both kernels against their plain versions on each eval run's last
-    # kernel B inputs (64, 4000, 32 and 64 envs)
+    # kernel B inputs (64, 4000, 32 and 64 envs, and 1024 in the vision
+    # runs), and kernel A on the renderer's last inputs
     eval_states = {f"eval_play_{k}": r["last_call"]
                    for k, r in ep["runs"].items()}
     eval_states.update(eval_gaits=eg["last_call"],
                        diag_parkour=dp["last_call"])
+    eval_states.update({p: r["last_call"] for p, r in vision.items()})
+    render_err = {p: r["renderer"]["kernel_a_max_abs_err"]
+                  for p, r in vision.items() if "renderer" in r}
     ka, kb, rg = results["kernel_a"], results["kernel_b"], results["ragged"]
     ka2, kc = results["kernel_a_go2"], results["kernel_b_ceiling"]
     ke = results["kernel_b_edges"]
@@ -1902,8 +2242,10 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
              "terrain": terrain, "terrain_full_rewards": full, **presets,
              "ppo_plus": plus, "ppornn": rnn, "rma": rma, "pbt": pbt,
              "multi": multi, "eval_play": ep, "eval_gaits": eg,
-             "diag_parkour": dp}
+             "diag_parkour": dp, **vision}
     by_path = lambda name: {p: r["launches"][name] for p, r in paths.items()}
+    vision_launches = lambda name: sum(r["launches"][name]
+                                       for r in vision.values())
     per_robot_a = {}
     for k, r in robot_a.items():
         per_robot_a.update({f"{k}_ms": r["device_ms"],
@@ -1937,17 +2279,21 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
         go1_flat_training_states_bound_ms=kts["go1_flat"]["bound_ms"])
     kernels = [
         dict(name=K.FK.name, route="cuda", source=K.FK.source,
-             replaces=K.FK.replaces, launches=ep["launches"][K.FK.name],
+             replaces=K.FK.replaces, launches=vision_launches(K.FK.name),
              launches_by_path=by_path(K.FK.name),
              max_abs_err=max([ka["max_abs_err"], ka2["max_abs_err"],
                               rg["kernel_a"]["max_abs_err"],
                               kam["max_abs_err"], kamt["max_abs_err"]]
                              + [r["max_abs_err"] for r in robot_a.values()]
                              + [c["kernel_a_max_abs_err"]
-                                for c in eval_states.values()]),
+                                for c in eval_states.values()]
+                             + list(render_err.values())),
              eval_states_max_abs_err={
                  p: c["kernel_a_max_abs_err"]
                  for p, c in eval_states.items()},
+             renderer_max_abs_err=render_err,
+             render_ms={p: r["renderer"]["render_ms"]
+                        for p, r in vision.items() if "renderer" in r},
              tolerance=ka["tolerance"],
              ms=ka2["ms"], kernel_ms=ka2["ms"], device_ms=ka2["device_ms"],
              call_ms=ka2["call_ms"], plain_ms=ka2["plain_ms"],
@@ -1968,7 +2314,7 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
              multi_launch_shape=shape[f"{K.FK.name}_multi"], library_ms=None),
         dict(name=K.DYNAMICS.name, route="cuda", source=K.DYNAMICS.source,
              replaces=K.DYNAMICS.replaces,
-             launches=ep["launches"][K.DYNAMICS.name],
+             launches=vision_launches(K.DYNAMICS.name),
              launches_by_path=by_path(K.DYNAMICS.name),
              max_abs_err=max([worst_b["max_abs_err"], kc["max_abs_err"],
                               kc["no_ceiling_max_abs_err"]]

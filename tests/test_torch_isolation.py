@@ -12,7 +12,12 @@ iteration of `train_multi` (go1/go2/b1 at 12 envs). A second subprocess,
 with the same block, resumes JAX checkpoints (`.pkl`, written by this test
 with the JAX package) through both training CLIs and runs chip_smoke's
 eval phases (play, eval_gaits, diag_parkour) on the CPU on policies it
-trains.
+trains, then its vision phases (train_vision generate, train, eval of the
+student and of the expert, at 8 envs on the 3 x 5 course), actuator_train
+(3 epochs) and a 2-point sweep of go1_flat at 16 envs. `ml_dtypes` is
+blocked too: the port reads JAX's bf16 demo files without it. The
+subprocesses run with one OpenMP thread: at 8-16 envs they gain nothing
+from more, and the suite's other workers share the cores.
 """
 import gzip
 import json
@@ -26,7 +31,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "wtw_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "wtw_tpu")
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -88,7 +93,7 @@ print(json.dumps({"modules": names, "leaked": leaked,
 
 
 def test_port_imports_no_jax_and_trains_on_cpu():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr[-4000:]
@@ -114,7 +119,10 @@ def test_port_imports_no_jax_and_trains_on_cpu():
                 "wtw_tpu_torch.learn.metrics_caches",
                 "wtw_tpu_torch.utils.monitor", "wtw_tpu_torch.utils.keyboard",
                 "wtw_tpu_torch.play", "wtw_tpu_torch.eval_gaits",
-                "wtw_tpu_torch.diag_parkour", "wtw_tpu_torch.smoke"):
+                "wtw_tpu_torch.diag_parkour", "wtw_tpu_torch.smoke",
+                "wtw_tpu_torch.envs.depth", "wtw_tpu_torch.learn.ddpg_demos",
+                "wtw_tpu_torch.learn.actuator_train",
+                "wtw_tpu_torch.train_vision", "wtw_tpu_torch.sweep"):
         assert mod in out["modules"]
     assert len(out["multi_rew"]) == 3
     assert all(abs(v) < 1e6 for v in out["multi_rew"])
@@ -168,7 +176,7 @@ def test_port_imports_no_jax_and_trains_on_cpu():
 
 EVAL_SCRIPT = r"""
 import json, os, sys, tempfile
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "wtw_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "wtw_tpu")
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -206,10 +214,27 @@ play = chip_smoke.phase_eval_play(
 gaits = chip_smoke.phase_eval_gaits(ck["mob"], "cpu", num_envs=8, steps=4)
 diag = chip_smoke.phase_diag_parkour(ck["parkour"], "cpu", num_envs=16,
                                      steps=8, overrides=course)
+demos = os.path.join(out_dir, "rb_demos.pt")
+vision = {"generate": chip_smoke.phase_vision_generate(
+    ck["parkour"], demos, "cpu", num_envs=8, steps=6, overrides=course)}
+vision["train"] = chip_smoke.phase_vision_train(
+    demos, out_dir, "cpu", num_envs=8, env_steps=80, bc_steps=2,
+    actor_delay=72, overrides=course)
+vision["eval_student"] = chip_smoke.phase_vision_eval(
+    os.path.join(out_dir, "vision_student.pt"), "cpu", num_envs=8, steps=4,
+    overrides=course)
+vision["eval_expert"] = chip_smoke.phase_vision_eval(
+    ck["parkour"], "cpu", num_envs=8, steps=4, student=False,
+    overrides=course)
+for r in vision.values():
+    r.pop("result", None)
+act = chip_smoke.phase_actuator_train("cpu", epochs=3)
+sw = chip_smoke.phase_sweep("cpu", num_envs=16, overrides=narrow)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 rows = lambda d: open(os.path.join(out_dir, d, "metrics.csv")).read()
 print(json.dumps({"leaked": leaked, "play": play, "gaits": gaits,
-                  "diag": diag,
+                  "diag": diag, "vision": vision, "actuator": act,
+                  "sweep": sw,
                   "first_row": {d: rows(d).splitlines()[1].split(",")[0]
                                 for d in ("a", "b")}}))
 """
@@ -264,7 +289,7 @@ def _jax_slim_files(tmp_path):
 
 def test_port_resumes_jax_files_and_evaluates_without_jax(tmp_path):
     stack_a, parkour = _jax_slim_files(tmp_path)
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-c", EVAL_SCRIPT, stack_a,
                           parkour, str(tmp_path)], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
@@ -298,3 +323,27 @@ def test_port_resumes_jax_files_and_evaluates_without_jax(tmp_path):
         assert r["build_s"] > 0 and r["env_steps_per_s"] > 0
     assert diag["last_call"]["with_ceiling"]
     assert not runs["8_envs"]["last_call"]["with_ceiling"]
+    # the vision phases: every kernel B call with the ceiling (4 a step),
+    # a frame a step where the student drives (kernel A's fifth call on
+    # the card), both kernels held on each run's last inputs and kernel A
+    # on the renderer's
+    vision = out["vision"]
+    for name, steps, frames in (("generate", 6, 6), ("train", 10, 10),
+                                ("eval_student", 4, 4),
+                                ("eval_expert", 4, 0)):
+        r = vision[name]
+        assert r["launches"] == {"fk": 0, "dynamics": 0}
+        assert r["dynamics_calls_with_ceiling"] == 4 * steps
+        assert r["last_call"]["num_envs"] == 8
+        assert r["last_call"]["kernel_a_same_bits"]
+        if frames:
+            assert r["renderer"]["frames"] == frames
+            assert r["renderer"]["kernel_a_max_abs_err"] == 0.0
+    tr = vision["train"]
+    # rounds from step 8 (8 envs, 64 env steps first), the actor from 9
+    assert (tr["bc_batches"], tr["update_rounds"], tr["actor_updates"]) == (
+        2, 2, 1)
+    assert tr["moved_tensors"] == tr["saved_tensors"] == 22
+    assert vision["generate"]["buffer_bytes"] == 64 * 8 * 3344
+    assert out["actuator"]["test_mae"] < out["actuator"]["label_std"]
+    assert out["sweep"]["rows"] == 2

@@ -10,10 +10,11 @@ port module has an obvious counterpart:
 - ``wtw_tpu_torch.envs``    — `LeggedEnv` (batched backend, flat ground or
   Stack-A terrain, PD control or the actuator net, the gait clock, or a
   mixed-robot batch from `envs.multi_env`), `ParkourEnv`, the
-  actuator-model wrapper.
+  actuator-model wrapper, and the depth camera (`envs.depth`).
 - ``wtw_tpu_torch.terrain`` — the Stack-A and parkour maps (numpy).
 - ``wtw_tpu_torch.learn``   — PPO with concurrent state estimation and the
-  `Runner`.
+  `Runner`, the CaT learners, RMA, PBT, DDPG with demos for the depth
+  student (`learn.ddpg_demos`) and the actuator-net trainer.
 - ``wtw_tpu_torch.models``  — robot specs (one robot, or stacked and
   assigned to envs by `models.multi`), the actor-critic and the actuator
   net.

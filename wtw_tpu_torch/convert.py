@@ -167,3 +167,77 @@ def parkour_world_from_jax(world, device="cpu", seed: int = 0) -> ParkourWorld:
         hist_obs=_tensor(world.hist_obs, dev),
         common_step=int(np.asarray(world.common_step)),
         gen=_generator(dev, seed))
+
+
+def _vision_from_jax(v) -> Dict[str, torch.Tensor]:
+    """Conv weights HWIO -> OIHW; `l1`/`l2` (in, out) -> (out, in), `l1`'s
+    1568 inputs kept in the JAX net's H, W, C order (`VisionNet` flattens
+    its conv output in that order)."""
+    sd = {}
+    for c in ("c1", "c2", "c3"):
+        sd[f"{c}.weight"] = _f32(np.transpose(np.asarray(v[c]["w"]),
+                                              (3, 2, 0, 1)))
+        sd[f"{c}.bias"] = _f32(v[c]["b"])
+    for lyr in ("l1", "l2"):
+        sd[f"{lyr}.weight"] = _f32(np.asarray(v[lyr]["w"]).T)
+        sd[f"{lyr}.bias"] = _f32(v[lyr]["b"])
+    return sd
+
+
+def _student_actor_from_jax(a) -> Dict[str, torch.Tensor]:
+    g = a["memory"]
+    sd = {"memory.weight_ih": _f32(np.asarray(g["w_ih"]).T),
+          "memory.weight_hh": _f32(np.asarray(g["w_hh"]).T),
+          "memory.bias_ih": _f32(g["b_ih"]), "memory.bias_hh": _f32(g["b_hh"])}
+    sd.update(_mlp_from_jax({"head": a["head"]}, ("head",)))
+    return sd
+
+
+def vision_params_from_jax(tree) -> Dict[str, torch.Tensor]:
+    """The JAX vision student {'actor': {'memory': GRU, 'head': [...]},
+    'vision': {'c1'..'c3', 'l1', 'l2'}} (numpy leaves, as
+    `vision_student.pkl` holds it) -> a state_dict for
+    `learn.ddpg_demos.Student`."""
+    sd = {f"vision.{k}": v for k, v in _vision_from_jax(tree["vision"]).items()}
+    sd.update({f"actor.{k}": v
+               for k, v in _student_actor_from_jax(tree["actor"]).items()})
+    return sd
+
+
+def q_ensemble_from_jax(qs) -> Dict[str, torch.Tensor]:
+    """The JAX critics, a list of layers whose leaves carry a leading critic
+    axis ({'w': (C, in, out), 'b', 'ln_g', 'ln_b': (C, out)}, no LayerNorm
+    on the last) -> a state_dict for `learn.ddpg_demos.QEnsemble`."""
+    sd = {}
+    for i, lyr in enumerate(qs):
+        for k in ("w", "b", "ln_g", "ln_b"):
+            if lyr.get(k) is not None:
+                sd[f"{k}{i}"] = _f32(lyr[k])
+    return sd
+
+
+def ddpg_state_from_jax(ts, learner, seed: int = 0) -> dict:
+    """A JAX `DDPGTrainState` (numpy leaves) -> the `state()` dict of the
+    port's `learn.ddpg_demos.DDPGLearner`, for its `load_state`: the student,
+    the critics and their targets, both optimizers' Adam moments and step
+    counts (`(actor, vision)` and the critics), and the actor-update count.
+    The JAX key has no counterpart: the learner's draws are reseeded from
+    `seed`."""
+    from .learn import jax_checkpoint as J
+    student = lambda t: vision_params_from_jax({"actor": t[0],
+                                                "vision": t[1]})
+    gen = torch.Generator(device=learner.device)
+    gen.manual_seed(int(seed))
+    dev = learner.device
+    on = lambda sd: {k: v.to(dev) for k, v in sd.items()}
+    return {
+        "student": on(vision_params_from_jax({"actor": ts.actor,
+                                              "vision": ts.vision})),
+        "qs": on(q_ensemble_from_jax(ts.qs)),
+        "q_targets": on(q_ensemble_from_jax(ts.q_targets)),
+        "actor_opt": J.optimizer_state(learner.actor_opt, learner.student,
+                                       J.adam_state(ts.actor_opt), student),
+        "q_opt": J.optimizer_state(learner.q_opt, learner.qs,
+                                   J.adam_state(ts.q_opt),
+                                   q_ensemble_from_jax),
+        "step": int(np.asarray(ts.step)), "gen_state": gen.get_state()}

@@ -31,28 +31,12 @@ import json
 import numpy as np
 import torch
 
-from . import config as C
-from . import resolve_device
+from .train_vision import build_env
 
 # the order in which a first episode's hard-done reason is named: physical
 # deaths before the timeout
 REASONS = ("diverged", "lava", "upsidedown", "base_contact", "knee_contact",
            "base_height", "timeout")
-
-
-def build_env(num_envs, seed, terrain="mixed", easy_mode=False,
-              overrides=(), device=None):
-    """The parkour env of `scripts/train_vision.py:21-34`: the course of the
-    `terrain` preset, `overrides` over ParkourCfg."""
-    from .envs.parkour_env import ParkourCfg, ParkourEnv
-    from .models import load_robot
-    from .terrain import ParkourTerrainCfg
-    from .train_parkour import TERRAIN_PRESETS
-    cfg = ParkourCfg(num_envs=num_envs, terrain=ParkourTerrainCfg(
-        proportions=TERRAIN_PRESETS[terrain], easy_mode=easy_mode))
-    cfg = C.apply_overrides(cfg, overrides)
-    return ParkourEnv(cfg, load_robot(cfg.robot), seed=seed,
-                      device=resolve_device(device))
 
 
 def load_cat_policy(path: str, env, stochastic=False, seed=0):

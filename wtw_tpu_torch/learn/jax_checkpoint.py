@@ -8,9 +8,13 @@ the `Cfg` tree. `JaxUnpickler` reads them with a restricted `find_class`:
 - numpy's array, dtype and scalar reconstructors (the `numpy._core` and
   `numpy.core` spellings both, so a file written with numpy 2 reads under
   numpy 1);
-- the learner, curriculum, CaT and world dataclasses of the JAX package,
+- the learner, curriculum, CaT and world dataclasses of the JAX package
+  and the vision pipeline's `SeqBuffer`,
   and optax's `ScaleByAdamState` and `EmptyState`, as plain records
   (`Record`: the fields as attributes; the optax states as named tuples);
+- `ml_dtypes.bfloat16` (the dtype of the vision demo buffer's wide fields)
+  as `numpy.uint16`: the raw 16-bit words, which `bf16_tensor` turns into
+  a torch bfloat16 tensor with the same bits, so no `ml_dtypes` is needed;
 - `wtw_tpu.config.*` as the port's own `config` classes, field by field: a
   field an older file lacks takes its default, a field the port does not
   know raises `UnpicklingError` naming it;
@@ -23,7 +27,7 @@ the port's learners: weights through `convert.py`, optax's Adam state
 The JAX PRNG key has no torch counterpart: the learner's generator is
 reseeded from the caller's seed.
 
-Imports nothing of jax, flax, optax or wtw_tpu.
+Imports nothing of jax, flax, optax, ml_dtypes or wtw_tpu.
 """
 from __future__ import annotations
 
@@ -63,7 +67,12 @@ _RECORDS = {
     ("wtw_tpu.envs.parkour_env", "ParkourEnvState"),
     ("wtw_tpu.envs.wrappers", "ActuatorModelState"),
     ("wtw_tpu.physics.state", "PhysicsState"),
+    # the vision pipeline's demo buffer (`rb_demos.pkl`)
+    ("wtw_tpu.learn.ddpg_demos", "SeqBuffer"),
 }
+# bfloat16 arrays (ml_dtypes, which JAX brings) read as their raw 16-bit
+# words, uint16: `bf16_tensor` reinterprets them
+_BF16 = ("ml_dtypes", "bfloat16")
 
 ScaleByAdamState = namedtuple("ScaleByAdamState", ["count", "mu", "nu"])
 EmptyState = namedtuple("EmptyState", [])
@@ -134,6 +143,8 @@ class JaxUnpickler(pickle.Unpickler):
             return _record_class(module, name)
         if (module, name) in _OPTAX:
             return _OPTAX[module, name]
+        if (module, name) == _BF16:
+            return np.uint16
         if module == "wtw_tpu.config":
             return _config_class(name)
         raise pickle.UnpicklingError(
@@ -153,15 +164,45 @@ def load(path: str) -> dict:
         return JaxUnpickler(f).load()
 
 
+def bf16_tensor(a) -> torch.Tensor:
+    """A bfloat16 array as `load` reads it (its raw words, uint16) -> a
+    torch bfloat16 tensor with the same bits; any other array as it is."""
+    a = np.asarray(a)
+    if a.dtype == np.uint16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def load_seq_buffer(path: str):
+    """The JAX package's `rb_demos.pkl` (a pickled
+    `wtw_tpu.learn.ddpg_demos.SeqBuffer`; obs, priv and hidden_in in
+    bfloat16, or float32 in older files) -> the port's `SeqBuffer` on the
+    CPU, every field with the JAX file's bits."""
+    from .ddpg_demos import SeqBuffer
+    rec = load(path)
+    return SeqBuffer(**{f: bf16_tensor(getattr(rec, f))
+                        for f in SeqBuffer.TENSORS},
+                     pos=int(np.asarray(rec.pos)),
+                     filled=int(np.asarray(rec.filled)))
+
+
 # ----------------------------------------------------------------------
 # optax's Adam state -> torch.optim.Adam's
 # ----------------------------------------------------------------------
+def _adam_states(state):
+    if all(hasattr(state, f) for f in ScaleByAdamState._fields):
+        yield state
+    elif isinstance(state, tuple):
+        for s in state:
+            yield from _adam_states(s)
+
+
 def adam_state(opt_state):
-    """The `ScaleByAdamState` of an optax chain's state: clip -> adam
-    stores (EmptyState, ScaleByAdamState), `optax.adam` stores
-    (ScaleByAdamState, EmptyState)."""
-    found = [s for s in opt_state
-             if all(hasattr(s, f) for f in ScaleByAdamState._fields)]
+    """The `ScaleByAdamState` of an optax chain's state, however nested:
+    clip -> adam stores (EmptyState, ScaleByAdamState) or (EmptyState,
+    (ScaleByAdamState, EmptyState)), `optax.adam` (ScaleByAdamState,
+    EmptyState)."""
+    found = list(_adam_states(opt_state))
     if len(found) != 1:
         raise ValueError(f"expected one ScaleByAdamState in the optimizer "
                          f"state, found {len(found)}")

@@ -1,6 +1,6 @@
 """Where one training iteration's time goes on the GPU.
 
-    python -m wtw_tpu_torch.trace [--task go1_flat|...|b1_mob|parkour|terrain|multi]
+    python -m wtw_tpu_torch.trace [--task go1_flat|...|b1_mob|parkour|terrain|multi|vision]
                                   [--algo ppo|ppo_plus|ppornn|ppo_cse|rma]
                                   [--num-envs N] [--iterations 2]
 
@@ -10,8 +10,12 @@ go1_mob or b1_mob, with the PPO learner or `--algo rma`; or through
 or Go2Terrain on its Stack-A map, `terrain`, with CaT PPO or `--algo
 ppo_plus|ppornn`; or through `train_multi.build` a mixed-robot batch,
 `multi`, go1/go2/b1 interleaved (the JAX package's round-5 mix), whose
-iteration also takes the per-robot reward step; N defaults to 4096 envs,
-a MoB preset's to its own count), runs one warm-up iteration, then times the rollout and the update of each further
+iteration also takes the per-robot reward step; or the vision student of
+`train_vision train`, `vision`, at `DDPGArgs`' defaults on the parkour
+course, whose iteration is one collect step (the depth frame, the
+student, the env step) and one update round of 8 substeps against a
+16-step demo buffer of a zero-action expert; N defaults to 4096 envs,
+vision's to 1024, a MoB preset's to its own count), runs one warm-up iteration, then times the rollout and the update of each further
 iteration separately (host clock, each ending in
 `torch.cuda.synchronize()`), and profiles the last one with
 `torch.profiler`: device time by kernel (self time summed over launches),
@@ -19,7 +23,9 @@ by group (the two physics kernels, matrix products, PyTorch's gathers
 such as the heightfield corner rows, everything else), the
 kernel launches of the iteration, the device time of kernel B's
 corner-row gathers (the kernels launched inside the `hf_corner_gather`
-profiler ranges of `physics/batched.py`), and the device's busy share of
+profiler ranges of `physics/batched.py`; with `vision` also the device
+time of the depth march's ground lookups, its `depth_march_ground`
+ranges), and the device's busy share of
 the iteration's wall time (one stream, so kernel times do not overlap).
 Prints one JSON line per result. Needs a CUDA device.
 """
@@ -33,6 +39,7 @@ import time
 import torch
 
 from .config import PRESETS
+from .envs.depth import MARCH_RANGE
 from .physics.batched import GATHER_RANGE
 
 
@@ -70,10 +77,39 @@ def _group(name: str) -> str:
     return "other kernels"
 
 
+def _vision(num_envs, seed):
+    """-> (env, one iteration) of `--task vision`: the iteration runs one
+    collect step and one update round and returns their host seconds, each
+    ending in `torch.cuda.synchronize()`."""
+    from .learn import ddpg_demos as D
+    from .train_vision import build_env
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = build_env(num_envs, seed, device="cuda")
+    args = D.DDPGArgs(buffer_steps=256)
+    zeros = torch.zeros(num_envs, env.num_actions, device=env.device)
+    demos = D.generate_demos(lambda obs: zeros, env, 16, seed,
+                             D.DDPGArgs(buffer_steps=64))
+    learner = D.DDPGLearner(env.num_obs, env.num_actions, args, seed,
+                            env.device)
+    col = D.Collector(env, learner, args, seed)
+
+    def iteration():
+        t0 = time.perf_counter()
+        col.collect()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        learner.update_round(col.rb, demos, True)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+    return env, iteration
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default="go1_flat",
-                    choices=sorted(PRESETS) + ["parkour", "terrain", "multi"])
+                    choices=sorted(PRESETS) + ["parkour", "terrain", "multi",
+                                               "vision"])
     ap.add_argument("--algo", default=None,
                     choices=["ppo", "ppo_plus", "ppornn", "ppo_cse", "rma"],
                     help="the learner: ppo (default), ppo_plus or ppornn on "
@@ -85,11 +121,17 @@ def main(argv=None):
     args = ap.parse_args(argv)
     parkour = args.task in ("parkour", "terrain")
     algo = args.algo or ("ppo" if parkour else "ppo_cse")
-    if (algo in ("ppo", "ppo_plus", "ppornn")) != parkour or (
+    if args.task == "vision":
+        if args.algo:
+            ap.error("--task vision takes no --algo (DDPG with demos)")
+        algo = "ddpg_demos"
+    elif (algo in ("ppo", "ppo_plus", "ppornn")) != parkour or (
             args.task == "multi" and algo != "ppo_cse"):
         ap.error(f"--algo {algo} does not train --task {args.task}")
-    per_robot = None
-    if args.task == "multi":
+    per_robot = vision_iteration = None
+    if args.task == "vision":
+        env, vision_iteration = _vision(args.num_envs or 1024, args.seed)
+    elif args.task == "multi":
         from .train_multi import build as build_multi
         env, runner = build_multi(("go1", "go2", "b1"),
                                   args.num_envs or 4096, device="cuda",
@@ -114,6 +156,8 @@ def main(argv=None):
 
     def iteration():
         nonlocal world, obs
+        if vision_iteration is not None:
+            return vision_iteration()
         t0 = time.perf_counter()
         world, obs, traj, _ = learner.rollout(world, obs)
         torch.cuda.synchronize()
@@ -137,7 +181,8 @@ def main(argv=None):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and "#" not in e.key and e.key != GATHER_RANGE]
+               and "#" not in e.key and e.key not in (GATHER_RANGE,
+                                                      MARCH_RANGE)]
     by_name = sorted(((_device_us(e), e.count, e.key) for e in kernels),
                      reverse=True)
     groups = {}
@@ -146,6 +191,7 @@ def main(argv=None):
         g[0] += us
         g[1] += count
     gather_us, gather_calls = _range_device_us(prof, GATHER_RANGE)
+    march_us, march_calls = _range_device_us(prof, MARCH_RANGE)
     busy_s = sum(us for us, _, _ in by_name) / 1e6
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"device": name, "task": args.task, "algo": algo,
@@ -159,7 +205,11 @@ def main(argv=None):
                       "groups": {k: {"device_ms": v[0] / 1e3, "launches": v[1]}
                                  for k, v in groups.items()},
                       "corner_row_gathers": {"device_ms": gather_us / 1e3,
-                                             "calls": gather_calls}}))
+                                             "calls": gather_calls},
+                      "depth_march_ground": {"device_ms": march_us / 1e3,
+                                             "calls": march_calls},
+                      "max_memory_allocated":
+                          torch.cuda.max_memory_allocated()}))
     print(json.dumps({"top_kernels": [
         {"name": key[:90], "device_ms": us / 1e3, "launches": count}
         for us, count, key in by_name[:15]]}))
