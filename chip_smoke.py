@@ -146,6 +146,34 @@ Phases, each printing one JSON line with its seconds:
 33. sweep: `wtw_tpu_torch.sweep` (its `main`), a 2-point grid of go1_flat
    at 1024 envs, 1 iteration each, every point a subprocess: summary.csv
    with 2 rows.
+34. train_go1_mob_bf16: phase 13's go1_mob with `--set
+   ac.compute_dtype=bfloat16` (4000 envs, 1 warm-up and 3 measured
+   iterations, 288 launches of each kernel): parameters and Adam's moments
+   fp32, the stored history bf16, the hidden activations bf16 and the
+   tower outputs fp32, the bf16 actor mean on the run's first
+   observations within 0.05 of the fp32 one, finite losses, both kernels
+   held on kernel B's last call; env steps/s and peak memory beside phase
+   13's (`fp32_env_steps_per_s`, `fp32_max_memory_allocated`);
+35. dist_go1_flat and dist_parkour: env-sharded data parallelism
+   (`wtw_tpu_torch.parallel`), 2 gloo ranks x 2048 envs on the one card
+   (worker processes of this script, `--dist-worker`) against 1 x 4096 in
+   this one, from the same world and weights, `sharding_invariant`
+   learners with 1 epoch (`ppo_cse` on go1_flat; CaT PPO on the full
+   course with 4 minibatches, as 6 do not divide 2048 envs), 3
+   iterations: every rank exits 0; the ranks' weights bitwise equal after
+   every iteration; after the last, weights within 3e-3 of the 1-rank
+   run's, base_pos within 1e-3, the loss within 1e-3 relative, and for
+   parkour CaT's running max and both normalizers within 1e-3 relative,
+   the terrain levels equal and the ceiling on every kernel B call; each
+   rank's launches exact and both kernels held on its last call; each
+   rank's env steps/s and collective ms an iteration (two ranks on one
+   card: no scaling number), and whether the runs agree to the bit;
+36. video_record: `utils/video.record_rollout` of phase 13's go1_mob
+   policy (through play's loader, 4000 envs), 250 steps of env 0: 1000
+   launches of each kernel, a finite (250, 3), (250, 4), (250, 12)
+   trajectory, a second record bitwise equal, one device-to-host copy,
+   both kernels held on the last call (no rendering: the card's machine
+   has no matplotlib).
 
 Each vision run also holds kernel A against its plain version on the
 renderer's last inputs (under FK_TOL, or 2 fp32 ulps of the largest
@@ -157,8 +185,10 @@ the ms of a BC batch and of an update round and the ring's and demos'
 bytes.
 
 After each eval run (each of eval_play's three, eval_gaits, diag_parkour,
-and the four vision runs) both kernels are held against their plain
-versions on the inputs of that run's last kernel B call, at the run's own env count and under the bars of
+the four vision runs, and phases 34-36: the bf16 run, each rank and the
+1-rank run of both dist phases, the record) both kernels are held against
+their plain versions on the inputs of that run's last kernel B call, at
+the run's own env count and under the bars of
 kernel_b_training_states (diag_parkour's with the ceiling), and kernel A
 relaunched on those states must give the bits that call was given
 (`last_call`; the kernels line's `eval_states_max_abs_err`). Each eval run
@@ -188,10 +218,11 @@ and the per-case times (`kernel_ms`, `ceiling_ms`, `go1_ms`, `flat_ms`,
 are device times per launch;
 before the kernels gave each env a team of lanes they were the
 events-over-calls times that are now `call_ms`. The line's `launches` is
-each kernel's count in the newest slice's path (the four vision runs),
-`launches_by_path` holds the counts of every training, eval and vision
-phase, and `renderer_max_abs_err` and `render_ms` kernel A's error and
-the renderer's ms on each vision run's last frame.
+each kernel's count in the newest slice's paths (phases 34-36: the bf16
+run, every rank and the 1-rank run of both dist phases, the record),
+`launches_by_path` holds the counts of every training, eval, vision and
+tenth-slice path, and `renderer_max_abs_err` and `render_ms` kernel A's
+error and the renderer's ms on each vision run's last frame.
 
 Then the kernels line, the nvidia-smi line, and the result line. Exits
 non-zero, with no result line, when there is no CUDA device, when the port
@@ -2004,6 +2035,559 @@ def phase_sweep(device="cuda", num_envs=1024, overrides=()):
                 steps_per_s=[float(r["steps_per_s"]) for r in summary])
 
 
+# ---------------------------------------------------------------------------
+# the tenth slice: bf16 products, env-sharded training, the video recorder
+# ---------------------------------------------------------------------------
+def phase_bf16_training(device="cuda", num_envs=None, iterations=3,
+                        warmup=1, overrides=(), preset="go1_mob", fp32=None):
+    """`train --preset go1_mob --set ac.compute_dtype=bfloat16` through the
+    port's entry points (`train.build`, `Runner.learn`), as
+    `phase_preset_training` runs it, with the checks of the bf16 path:
+    parameters and Adam's moments fp32; the rollout's stored history bf16
+    (read from the update's argument); every hidden activation bf16 and the
+    tower outputs fp32; on the run's first observations and parameters the
+    bf16 actor mean within 0.05 of the fp32 one (the JAX package's bar,
+    tests/test_mixed_precision.py:53-54); both kernels against their plain
+    versions on the inputs of kernel B's last call (`last_call`). `fp32`:
+    the fp32 run's record, whose env steps/s and peak memory are reported
+    beside this run's."""
+    from wtw_tpu_torch.models import actor_critic as ac
+    from wtw_tpu_torch.train import build
+    dev = torch.device(device)
+    run_dir = tempfile.mkdtemp(prefix=f"wtw_chip_smoke_{preset}_bf16_")
+    try:
+        t0 = time.perf_counter()
+        env, runner = build(preset, num_envs,
+                            list(overrides) + ["ac.compute_dtype=bfloat16"],
+                            dev, seed=SEED, run_dir=run_dir, log_freq=1,
+                            save_interval=0)
+        build_s = time.perf_counter() - t0
+        model = runner.ppo.ac
+        obs_h = runner.obs_dict["obs_history"]
+        acts = []
+        hooks = [m.register_forward_hook(lambda m, i, o: acts.append(o.dtype))
+                 for m in model.modules() if isinstance(m, torch.nn.ELU)]
+        with torch.no_grad():
+            mean16, _ = model.distribution(obs_h)
+            value16 = model.evaluate(obs_h, runner.obs_dict["privileged_obs"])
+            ref = ac.ActorCritic(env.num_obs, env.num_privileged_obs,
+                                 env.num_obs_history, env.num_actions,
+                                 dataclasses.replace(
+                                     runner.ppo.ac_args,
+                                     compute_dtype="float32")).to(dev)
+            ref.load_state_dict(model.state_dict())
+            mean32, _ = ref.distribution(obs_h)
+        for h in hooks:
+            h.remove()
+        mean_err = float((mean16 - mean32).abs().max())
+        if not (set(acts) == {torch.bfloat16} and mean16.dtype == torch.float32
+                and value16.dtype == torch.float32):
+            raise AssertionError(f"bf16 training: hidden activations {acts}, "
+                                 f"mean {mean16.dtype}, value {value16.dtype}")
+        if not mean_err <= 0.05:
+            raise AssertionError(f"bf16 training: the bf16 actor mean is "
+                                 f"{mean_err} off the fp32 one (bar 0.05)")
+        stored = []
+        real_update = runner.ppo.update
+
+        def update(traj, *a, **kw):
+            stored.append(traj.obs_history.dtype)
+            return real_update(traj, *a, **kw)
+        runner.ppo.update = update
+        keep = {}
+        try:
+            rec = _measure(runner.learn, dev, iterations, warmup,
+                           env.num_envs, runner.args.num_steps_per_env, keep)
+        finally:
+            del runner.ppo.update
+        stats = runner.last_stats
+        losses = _finite({k: float(stats[k]) for k in (
+            "loss", "surrogate_loss", "value_loss", "adaptation_loss",
+            "kl_mean")}, f"{preset} bf16 training")
+        opt_dtypes = {str(v.dtype) for opt in (runner.ppo.opt,
+                                               runner.ppo.adapt_opt)
+                      for s in opt.state.values() for v in s.values()
+                      if torch.is_tensor(v) and v.dim() > 0}
+        param_dtypes = {str(p.dtype) for p in model.parameters()}
+        if (param_dtypes != {"torch.float32"}
+                or opt_dtypes != {"torch.float32"}
+                or set(stored) != {torch.bfloat16}):
+            raise AssertionError(f"bf16 training: parameters {param_dtypes}, "
+                                 f"Adam moments {opt_dtypes}, stored history "
+                                 f"{stored}")
+        return dict(
+            preset=preset, compute_dtype="bfloat16", num_envs=env.num_envs,
+            num_obs_history=env.num_obs_history, build_s=build_s,
+            iterations=iterations, **rec, losses=losses,
+            expected_launches_per_kernel=(
+                iterations * runner.args.num_steps_per_env
+                * env.cfg.control.decimation),
+            parameter_dtypes=sorted(param_dtypes),
+            adam_moment_dtypes=sorted(opt_dtypes),
+            stored_history_dtype=str(stored[-1]),
+            hidden_activation_dtypes=sorted({str(a) for a in acts}),
+            tower_output_dtypes=[str(mean16.dtype), str(value16.dtype)],
+            first_obs_mean_max_abs_err_vs_fp32=mean_err,
+            fp32_env_steps_per_s=fp32 and fp32["env_steps_per_s"],
+            fp32_max_memory_allocated=fp32 and fp32["max_memory_allocated"],
+            last_call=_last_call_check(types.SimpleNamespace(
+                last=keep["dynamics"]), f"{preset} bf16 training"),
+            mean_step_reward=float(stats["mean_step_reward"]))
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+DIST_LEGGED = ("go1_flat", "rma")
+DIST_TASKS = DIST_LEGGED + ("parkour", "ppo_plus", "ppornn")
+
+
+def _overrides(overrides, prefix):
+    return [s[len(prefix):] for s in overrides if s.startswith(prefix)]
+
+
+def _dist_setup(spec, group):
+    """(train fn, learner, world, obs) of a dist task at the global width
+    `spec["num_envs"]`: the world built whole by the ungrouped env from
+    the seed, then, with a group, cut to this rank's shard
+    (`parallel.shard_world` / `shard_parkour_world`), the env built with
+    the group and the learner through `make_distributed_*_train_fn`
+    (its parameters broadcast from rank 0)."""
+    from wtw_tpu_torch import config as C
+    from wtw_tpu_torch.parallel import mesh
+    task, n, dev = spec["task"], spec["num_envs"], torch.device(
+        spec["device"])
+    ov = list(spec.get("overrides_by_task", {}).get(
+        task, spec.get("overrides", ())))
+    if task in DIST_LEGGED:
+        from wtw_tpu_torch.envs import make_legged_env
+        from wtw_tpu_torch.learn import PPOArgs
+        from wtw_tpu_torch.learn.ppo_cse import PPO
+        from wtw_tpu_torch.learn.ppo_rma import RMA, RMAArgs
+        from wtw_tpu_torch.models.actor_critic import ACArgs
+        cfg = C.PRESETS["go1_flat"]()
+        cfg = dataclasses.replace(cfg, env=dataclasses.replace(
+            cfg.env, num_envs=n))
+        cfg = C.apply_overrides(cfg, [s for s in ov if not s.startswith(
+            ("ppo.", "ac."))])
+        args = C.apply_overrides(PPOArgs(
+            num_learning_epochs=1, sharding_invariant=(task == "go1_flat"),
+            num_steps_per_env=spec["num_steps"],
+            num_mini_batches=spec["num_minibatches"]), _overrides(ov, "ppo."))
+        cls, net_args = ((PPO, C.apply_overrides(ACArgs(),
+                                                 _overrides(ov, "ac.")))
+                         if task == "go1_flat" else
+                         (RMA, C.apply_overrides(RMAArgs(),
+                                                 _overrides(ov, "ac."))))
+        whole = make_legged_env(cfg, device=dev, seed=SEED)
+        world = whole.init_state(SEED)
+        world, obs = whole.get_observations(world)
+        if group is None:
+            ln = cls(whole, args, net_args, seed=SEED)
+            return ln.train_iteration, ln, world, obs
+        env = make_legged_env(cfg, device=dev, seed=SEED, group=group)
+        world, obs = mesh.shard_world(world, obs, group)
+        fn = mesh.make_distributed_train_fn(env, args, net_args, group,
+                                            seed=SEED, learner_cls=cls)
+        return fn, fn.learner, world, obs
+    from wtw_tpu_torch.envs.parkour_env import ParkourCfg, ParkourEnv
+    from wtw_tpu_torch.learn.cat_ppo import CatPPO, CatPPOArgs
+    from wtw_tpu_torch.learn.cat_ppo_plus import CatPPOPlus, PPOPlusArgs
+    from wtw_tpu_torch.learn.cat_ppornn import CatPPORNN, RNNArgs
+    from wtw_tpu_torch.models import load_robot
+    cls, args_cls = {"parkour": (CatPPO, CatPPOArgs),
+                     "ppo_plus": (CatPPOPlus, PPOPlusArgs),
+                     "ppornn": (CatPPORNN, RNNArgs)}[task]
+    cfg = C.apply_overrides(ParkourCfg(num_envs=n), [
+        s for s in ov if not s.startswith("ppo.")])
+    kw = dict(num_steps=spec["num_steps"], update_epochs=1,
+              num_minibatches=spec["num_minibatches"])
+    if task == "parkour":
+        kw["sharding_invariant"] = True
+    args = C.apply_overrides(args_cls(**kw), _overrides(ov, "ppo."))
+    model = load_robot(cfg.robot)
+    whole = ParkourEnv(cfg, model, seed=SEED, device=dev)
+    world = whole.init_state(SEED)
+    obs = whole.get_observations(world)
+    if group is None:
+        ln = cls(whole, args, seed=SEED)
+        return ln.train_iteration, ln, world, ln.observe(obs)
+    env = ParkourEnv(cfg, model, seed=SEED, device=dev, group=group)
+    world, obs = mesh.shard_parkour_world(world, obs, group)
+    fn = mesh.make_distributed_cat_train_fn(env, args, group, seed=SEED,
+                                            learner_cls=cls)
+    return fn, fn.learner, world, fn.learner.observe(obs)
+
+
+def _net(ln):
+    return getattr(ln, "ac", None) or getattr(ln, "agent", None) or ln.model
+
+
+def _param_digest(ln) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for v in _net(ln).state_dict().values():
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+class ReduceTimer:
+    """The milliseconds spent in the group's collectives inside the block
+    (all-reduces and all-gathers, the card synced before and after each),
+    by wrapping `parallel.mesh._reduce` and `_gather`; `calls` counts
+    them."""
+
+    def __enter__(self):
+        from wtw_tpu_torch.parallel import mesh
+        self.mesh = mesh
+        self.real = {n: getattr(mesh, n) for n in ("_reduce", "_gather")}
+        self.ms, self.calls = 0.0, 0
+
+        def wrap(real):
+            def timed(x, *a):
+                if x.is_cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(x, *a)
+                if x.is_cuda:
+                    torch.cuda.synchronize()
+                self.ms += 1e3 * (time.perf_counter() - t0)
+                self.calls += 1
+                return out
+            return timed
+        for n, real in self.real.items():
+            setattr(mesh, n, wrap(real))
+        return self
+
+    def __exit__(self, *exc):
+        for n, real in self.real.items():
+            setattr(self.mesh, n, real)
+
+
+def _dist_run(spec, group, out_prefix=None):
+    """`spec["iterations"]` train iterations of a dist task on this rank
+    (or the whole run): per iteration the digest of the network's
+    parameters, the loss, env steps/s and the all-reduce ms; the launches
+    and kernel B's calls with a ceiling over the run; both kernels against
+    their plain versions on kernel B's last call (on a card). The final
+    state goes to `out_prefix`.pt for the parent's comparisons."""
+    dev = torch.device(spec["device"])
+    fn, ln, world, obs = _dist_setup(spec, group)
+    # one set of initial weights for both runs: the CaT nets' orthogonal
+    # init runs a QR on the host, whose bits follow its thread count
+    if spec.get("init_save"):
+        torch.save(_net(ln).state_dict(), spec["init_save"])
+    if spec.get("init_load"):
+        _net(ln).load_state_dict(torch.load(spec["init_load"]))
+    n_local = ln.env.num_envs
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" else (
+        lambda: None)
+    digests, losses, rates, reduce_ms, reduce_calls = [], [], [], [], []
+    base_pos = []
+    steps = spec["num_steps"]
+    with Counted() as c:
+        for _ in range(spec["iterations"]):
+            with ReduceTimer() as rt:
+                sync()
+                t0 = time.perf_counter()
+                world, obs, stats = fn(world, obs)
+                sync()
+                wall = time.perf_counter() - t0
+            rates.append(steps * n_local / wall)
+            reduce_ms.append(rt.ms)
+            reduce_calls.append(rt.calls)
+            digests.append(_param_digest(ln))
+            losses.append(float(stats["loss"]))
+            base_pos.append(world.env.phys.base_pos.cpu())
+    _finite(dict(enumerate(losses)), f"dist {spec['task']}")
+    env = ln.env
+    state = {"params": {k: v.detach().cpu()
+                        for k, v in _net(ln).state_dict().items()}}
+    legged = spec["task"] in DIST_LEGGED
+    e = world.env if legged else world.env
+    state["base_pos"] = e.phys.base_pos.cpu()
+    state["base_pos_by_iteration"] = base_pos
+    ceiling = None if legged else getattr(env, "hf_ceiling", None)
+    if not legged:
+        state["running_max"] = world.cat.running_max.cpu()
+        state["terrain_level"] = e.terrain_level.cpu()
+        for name in ("obs_rms", "value_rms"):
+            r = getattr(ln, name)
+            state[name] = {f: getattr(r, f).detach().cpu()
+                           for f in ("mean", "var", "count")}
+    if out_prefix:
+        torch.save(state, out_prefix + ".pt")
+    rec = dict(task=spec["task"], num_envs=n_local,
+               iterations=spec["iterations"], param_digests=digests,
+               losses=losses, env_steps_per_s=rates,
+               collective_ms_per_iteration=reduce_ms,
+               collectives_per_iteration=reduce_calls, launches=c.launches,
+               dynamics_calls_with_ceiling=c.dynamics_calls_with_ceiling,
+               ceiling=ceiling is not None and not ceiling.is_flat,
+               expected_launches_per_kernel=(
+                   spec["iterations"] * steps * env.cfg.control.decimation
+                   if legged else spec["iterations"] * steps
+                   * env.cfg.decimation))
+    rec["last_call"] = _last_call_check(c, f"dist {spec['task']}")
+    if dev.type == "cuda":
+        _check_launches(f"dist {spec['task']} rank", rec)
+    return rec, state
+
+
+def dist_worker(spec_path) -> int:
+    """One rank of a dist phase (`--dist-worker`): joins the group over
+    gloo, runs each task of the spec and writes its record and state."""
+    from wtw_tpu_torch.parallel import mesh
+    with open(spec_path) as f:
+        spec = json.load(f)
+    if spec["device"] != "cpu":
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    group = mesh.init_group("gloo", spec["init_method"], spec["world_size"],
+                            spec["rank"])
+    out = {}
+    for task in spec["tasks"]:
+        prefix = f"{spec['out']}_{task}_rank{spec['rank']}"
+        out[task], _ = _dist_run(dict(spec, task=task), group, prefix)
+    with open(f"{spec['out']}_rank{spec['rank']}.json", "w") as f:
+        json.dump(out, f)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn_ranks(spec, ranks, d, timeout):
+    """Start `ranks` worker processes of this script on `spec` and wait
+    for all of them; every rank must exit 0. -> their records."""
+    procs = []
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    try:
+        for r in range(ranks):
+            path = os.path.join(d, f"spec{r}.json")
+            with open(path, "w") as f:
+                json.dump(dict(spec, rank=r, world_size=ranks), f)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 path], cwd=root, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = {r: (p.returncode, o[1][-3000:])
+           for r, (p, o) in enumerate(zip(procs, outs)) if p.returncode != 0}
+    if bad:
+        raise AssertionError(f"dist ranks failed: {bad}")
+    recs = []
+    for r in range(ranks):
+        with open(f"{spec['out']}_rank{r}.json") as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def _close(a, b, what, atol=0.0, rtol=0.0):
+    err = float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    bar = atol + rtol * float(b.double().abs().max()) if b.numel() else atol
+    if not torch.allclose(a.double(), b.double(), atol=atol, rtol=rtol):
+        raise AssertionError(f"{what}: {err} off the 1-rank run")
+    return err
+
+
+def phase_dist(task="go1_flat", device="cuda", num_envs=B, ranks=2,
+               iterations=3, num_steps=24, num_minibatches=4, overrides=(),
+               timeout=900):
+    """Env-sharded data-parallel training (`wtw_tpu_torch.parallel`):
+    `ranks` ranks of `num_envs / ranks` envs each, as worker processes of
+    this script joined over gloo (two ranks share the one card, which NCCL
+    refuses; gloo reduces on the host), against one rank of `num_envs` in
+    this process, from the same initial world (built whole from the seed,
+    then cut by `shard_world`) and the same parameters (the 1-rank run's,
+    loaded by every rank, then broadcast from rank 0 by
+    `make_distributed_*_train_fn`), with `sharding_invariant` learners and
+    1 epoch, for
+    `iterations` iterations: the ranks' parameters bitwise equal after
+    every iteration; after the last, the parameters within 3e-3 of the
+    1-rank run, base_pos within 1e-3 and the loss within rtol 1e-3 (the
+    bars of tests/test_parallel.py:209-216); with `task="parkour"` (CaT
+    PPO on the parkour course) also CaT's running max within rtol 1e-3,
+    both normalizers' moments within rtol 1e-3, the terrain levels equal
+    and the ceiling on every kernel B call (tests/test_parallel.py:
+    138-166; on a course with a ceiling). On a card, each rank's launches
+    are exact and both kernels
+    are held against their plain versions on its last call. Two ranks on
+    one card give no scaling number."""
+    spec = dict(task=task, tasks=[task], device=device, num_envs=num_envs,
+                num_steps=num_steps, num_minibatches=num_minibatches,
+                iterations=iterations, overrides=list(overrides))
+    d = tempfile.mkdtemp(prefix=f"wtw_chip_smoke_dist_{task}_")
+    try:
+        init = os.path.join(d, "init.pt")
+        t0 = time.perf_counter()
+        ref, ref_state = _dist_run(dict(spec, init_save=init), None)
+        ref_s = time.perf_counter() - t0
+        spec.update(init_method="file://" + os.path.join(d, "rendezvous"),
+                    out=os.path.join(d, "out"), init_load=init)
+        t0 = time.perf_counter()
+        recs = [r[task] for r in _spawn_ranks(spec, ranks, d, timeout)]
+        ranks_s = time.perf_counter() - t0
+        states = [torch.load(f"{spec['out']}_{task}_rank{r}.pt")
+                  for r in range(ranks)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for it in range(iterations):
+        if len({r["param_digests"][it] for r in recs}) != 1:
+            raise AssertionError(f"dist {task}: the ranks' parameters "
+                                 f"differ after iteration {it}")
+    for k in ("params",):
+        for name, v in states[0][k].items():
+            for s in states[1:]:
+                if not torch.equal(s[k][name], v):
+                    raise AssertionError(f"dist {task}: replicas differ "
+                                         f"in {name}")
+    by_it = []
+    for it in range(iterations):
+        d = (torch.cat([s["base_pos_by_iteration"][it] for s in states])
+             - ref_state["base_pos_by_iteration"][it]).abs()
+        by_it.append({"max": float(d.max()),
+                      "share_over_1e-3": float((d > 1e-3).float().mean()),
+                      "share_nonzero": float((d > 0).float().mean())})
+    errs = {"params": max(_close(states[0]["params"][k], v, f"{task} {k}",
+                                 atol=3e-3)
+                          for k, v in ref_state["params"].items()),
+            "base_pos": _close(torch.cat([s["base_pos"] for s in states]),
+                               ref_state["base_pos"], f"{task} base_pos",
+                               atol=1e-3)}
+    loss = recs[0]["losses"][-1]
+    if not math.isclose(loss, ref["losses"][-1], rel_tol=1e-3,
+                        abs_tol=1e-4):
+        raise AssertionError(f"dist {task}: loss {loss} against the 1-rank "
+                             f"run's {ref['losses'][-1]}")
+    errs["loss_rel"] = abs(loss - ref["losses"][-1]) / max(
+        abs(ref["losses"][-1]), 1e-12)
+    if task == "parkour":
+        errs["running_max"] = _close(states[0]["running_max"],
+                                     ref_state["running_max"],
+                                     "parkour running max", rtol=1e-3)
+        for name in ("obs_rms", "value_rms"):
+            for f in ("mean", "var", "count"):
+                errs[f"{name}_{f}"] = _close(
+                    states[0][name][f], ref_state[name][f],
+                    f"parkour {name}.{f}", rtol=1e-3, atol=1e-4)
+        lvl = torch.cat([s["terrain_level"] for s in states])
+        if not torch.equal(lvl, ref_state["terrain_level"]):
+            raise AssertionError("dist parkour: terrain levels differ")
+        for r in recs + [ref]:
+            if r["ceiling"] and (r["dynamics_calls_with_ceiling"]
+                                 != r["expected_launches_per_kernel"]):
+                raise AssertionError("dist parkour: kernel B ran without "
+                                     "the ceiling")
+    bitwise = all(v == 0.0 for v in errs.values())
+    return dict(task=task, ranks=ranks, num_envs_per_rank=recs[0]["num_envs"],
+                iterations=iterations, one_rank=ref, per_rank=recs,
+                one_rank_s=ref_s, ranks_s=ranks_s, max_abs_err=errs,
+                base_pos_by_iteration=by_it,
+                bitwise_equal_to_one_rank=bitwise,
+                launches=recs[0]["launches"],
+                replicas_bitwise_equal=True, scaling_number=False)
+
+
+def phase_dist_learners(device="cuda", num_envs=16, num_steps=4,
+                        num_minibatches=2, overrides_by_task=None,
+                        timeout=900):
+    """ppo_rma (go1_flat), cat_ppo_plus and cat_ppornn (the parkour
+    course) one iteration each on 2 ranks, in one spawn: the ranks'
+    parameters bitwise equal (these learners have no sharding_invariant
+    mode, as in the JAX package). `overrides_by_task`: {task: the
+    `section.field=value` overrides of its config and learner}."""
+    spec = dict(tasks=["rma", "ppo_plus", "ppornn"], device=device,
+                num_envs=num_envs, num_steps=num_steps,
+                num_minibatches=num_minibatches, iterations=1,
+                overrides_by_task=dict(overrides_by_task or {}))
+    d = tempfile.mkdtemp(prefix="wtw_chip_smoke_dist_learners_")
+    try:
+        spec.update(init_method="file://" + os.path.join(d, "rendezvous"),
+                    out=os.path.join(d, "out"))
+        recs = _spawn_ranks(spec, 2, d, timeout)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    for task in spec["tasks"]:
+        if recs[0][task]["param_digests"] != recs[1][task]["param_digests"]:
+            raise AssertionError(f"dist {task}: the ranks' parameters differ")
+    return {task: dict(losses=recs[0][task]["losses"],
+                       launches=recs[0][task]["launches"],
+                       replicas_bitwise_equal=True)
+            for task in spec["tasks"]}
+
+
+PROFILED_STEPS = 16
+
+
+def phase_video_record(checkpoint, device="cuda", num_envs=4000, steps=250):
+    """`utils/video.record_rollout` of the go1_mob policy of phase 13 (its
+    `.pt`, through play's loader: the env from the file's config at
+    `num_envs` envs, every DR off except the lag, the trot at 3 Hz and vx
+    1.5), `steps` policy steps (the JAX default) of env 0: each kernel
+    launched exactly steps x 4; a finite trajectory of (steps, 3), (steps,
+    4) and (steps, 12); a second record from the same seed bitwise equal
+    to the first; one device-to-host copy in a record (the profiler's
+    `Memcpy DtoH` events over a `PROFILED_STEPS`-step record); both
+    kernels against their plain versions on the last call. The card cannot
+    render here (no matplotlib)."""
+    from wtw_tpu_torch import play
+    from wtw_tpu_torch.utils.video import record_rollout
+    dev = torch.device(device)
+    t0 = time.perf_counter()
+    env, policy, cfg, _ = play.build(checkpoint, num_envs, None, SEED,
+                                     device, "go1_mob")
+    commands = play.command_vector(cfg.commands.num_commands, 1.5, 0.0,
+                                   "trot", 3.0, 0.08)
+    build_s = time.perf_counter() - t0
+    with Counted() as c:
+        tr = record_rollout(env, policy, steps, seed=SEED, commands=commands)
+    if dev.type == "cuda":
+        _expect_launches("video_record", c, steps * 4)
+    tr2 = record_rollout(env, policy, steps, seed=SEED, commands=commands)
+    # the device-to-host copies of a record, counted by the profiler on a
+    # short one (the read-back is one at any length; 250 profiled steps
+    # take the profiler ~50 s)
+    acts = [torch.profiler.ProfilerActivity.CUDA if dev.type == "cuda"
+            else torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=acts) as prof:
+        record_rollout(env, policy, PROFILED_STEPS, seed=SEED,
+                       commands=commands)
+    d2h = sum(e.count for e in prof.key_averages()
+              if "dtoh" in e.key.lower().replace(" ", ""))
+    shapes = [list(tr.base_pos.shape), list(tr.base_quat.shape),
+              list(tr.joint_q.shape)]
+    if shapes != [[steps, 3], [steps, 4], [steps, env.num_actions]]:
+        raise AssertionError(f"video_record: trajectory shapes {shapes}")
+    if not all(np.isfinite(x).all() for x in (tr.base_pos, tr.base_quat,
+                                              tr.joint_q)):
+        raise AssertionError("video_record: non-finite trajectory")
+    same = all(np.array_equal(a, b) for a, b in (
+        (tr.base_pos, tr2.base_pos), (tr.base_quat, tr2.base_quat),
+        (tr.joint_q, tr2.joint_q)))
+    if not same:
+        raise AssertionError("video_record: two records from one seed "
+                             "differ")
+    if dev.type == "cuda" and d2h != 1:
+        raise AssertionError(f"video_record: {d2h} device-to-host copies "
+                             f"in a record")
+    return dict(num_envs=env.num_envs, steps=steps, env_index=0,
+                shapes=shapes, launches=c.launches, build_s=build_s,
+                record_s=c.seconds, ms_per_policy_step=1e3 * c.seconds
+                / steps, device_to_host_copies=d2h,
+                device_to_host_copies_steps=PROFILED_STEPS,
+                bitwise_repeatable=same,
+                base_height_mean=float(tr.base_pos[:, 2].mean()),
+                last_call=_last_call_check(c, "video_record"))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true",
@@ -2011,7 +2595,11 @@ def main(argv=None) -> int:
                          "(phases 1-5, 8-9, 12 and 14), with no result line: "
                          "to time the kernels of another checkout, copy this "
                          "file into it and run it there")
+    ap.add_argument("--dist-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2216,6 +2804,26 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
     vision = {"vision_generate": vg, "vision_train": vt,
               "vision_eval_student": ves, "vision_eval_expert": vee}
 
+    # the tenth slice: go1_mob with bf16 products beside phase 13's fp32,
+    # env-sharded training on two ranks of the one card, and the video
+    # recorder on phase 13's policy
+    bf = run("train_go1_mob_bf16", phase_bf16_training, fp32=mob)
+    _check_launches("go1_mob bf16 training", bf)
+    dist = {"dist_go1_flat": run("dist_go1_flat", phase_dist, "go1_flat"),
+            "dist_parkour": run("dist_parkour", phase_dist, "parkour")}
+    video = run("video_record", phase_video_record, ckpt["go1_mob"])
+    slice_paths = {"go1_mob_bf16": bf, "video_record": video}
+    for name, r in dist.items():
+        slice_paths[f"{name}_one_rank"] = r["one_rank"]
+        for i, rr in enumerate(r["per_rank"]):
+            slice_paths[f"{name}_rank{i}"] = rr
+    slice_states = {"go1_mob_bf16": bf["last_call"],
+                    "video_record": video["last_call"]}
+    for name, r in dist.items():
+        slice_states[f"{name}_one_rank"] = r["one_rank"]["last_call"]
+        for i, rr in enumerate(r["per_rank"]):
+            slice_states[f"{name}_rank{i}"] = rr["last_call"]
+
     # both kernels against their plain versions on each eval run's last
     # kernel B inputs (64, 4000, 32 and 64 envs, and 1024 in the vision
     # runs), and kernel A on the renderer's last inputs
@@ -2224,6 +2832,7 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
     eval_states.update(eval_gaits=eg["last_call"],
                        diag_parkour=dp["last_call"])
     eval_states.update({p: r["last_call"] for p, r in vision.items()})
+    eval_states.update(slice_states)
     render_err = {p: r["renderer"]["kernel_a_max_abs_err"]
                   for p, r in vision.items() if "renderer" in r}
     ka, kb, rg = results["kernel_a"], results["kernel_b"], results["ragged"]
@@ -2242,10 +2851,10 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
              "terrain": terrain, "terrain_full_rewards": full, **presets,
              "ppo_plus": plus, "ppornn": rnn, "rma": rma, "pbt": pbt,
              "multi": multi, "eval_play": ep, "eval_gaits": eg,
-             "diag_parkour": dp, **vision}
+             "diag_parkour": dp, **vision, **slice_paths}
     by_path = lambda name: {p: r["launches"][name] for p, r in paths.items()}
-    vision_launches = lambda name: sum(r["launches"][name]
-                                       for r in vision.values())
+    slice_launches = lambda name: sum(r["launches"][name]
+                                      for r in slice_paths.values())
     per_robot_a = {}
     for k, r in robot_a.items():
         per_robot_a.update({f"{k}_ms": r["device_ms"],
@@ -2279,7 +2888,7 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
         go1_flat_training_states_bound_ms=kts["go1_flat"]["bound_ms"])
     kernels = [
         dict(name=K.FK.name, route="cuda", source=K.FK.source,
-             replaces=K.FK.replaces, launches=vision_launches(K.FK.name),
+             replaces=K.FK.replaces, launches=slice_launches(K.FK.name),
              launches_by_path=by_path(K.FK.name),
              max_abs_err=max([ka["max_abs_err"], ka2["max_abs_err"],
                               rg["kernel_a"]["max_abs_err"],
@@ -2314,7 +2923,7 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
              multi_launch_shape=shape[f"{K.FK.name}_multi"], library_ms=None),
         dict(name=K.DYNAMICS.name, route="cuda", source=K.DYNAMICS.source,
              replaces=K.DYNAMICS.replaces,
-             launches=vision_launches(K.DYNAMICS.name),
+             launches=slice_launches(K.DYNAMICS.name),
              launches_by_path=by_path(K.DYNAMICS.name),
              max_abs_err=max([worst_b["max_abs_err"], kc["max_abs_err"],
                               kc["no_ceiling_max_abs_err"]]

@@ -259,10 +259,19 @@ def test_play_prints_the_jax_scripts_keys(mob_pt, capsys):
                if isinstance(v, float))
 
 
-def test_play_refuses_video(mob_pt):
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.8"):
-        play.main(["--checkpoint", mob_pt, "--device", "cpu", "--video",
-                   "x.mp4"])
+def test_play_writes_video(mob_pt, tmp_path, one_thread):
+    """`play --video` records env 0 over the rollout (4 steps here) and
+    renders it: an mp4 through ffmpeg, else a GIF beside the path asked
+    for, with one frame every second step."""
+    from PIL import Image
+    out = play.main(["--checkpoint", mob_pt, "--device", "cpu",
+                     "--num-envs", "4", "--steps", "4", "--video",
+                     str(tmp_path / "v.mp4")])
+    path = out["video"]
+    assert os.path.exists(path) and os.path.getsize(path) > 0
+    assert path.rsplit(".", 1)[0] == str(tmp_path / "v")
+    if path.endswith(".gif"):
+        assert Image.open(path).n_frames == 2
 
 
 def test_eval_gaits_writes_the_jax_scripts_lines(mob_pt, tmp_path,

@@ -14,10 +14,16 @@ with the JAX package) through both training CLIs and runs chip_smoke's
 eval phases (play, eval_gaits, diag_parkour) on the CPU on policies it
 trains, then its vision phases (train_vision generate, train, eval of the
 student and of the expert, at 8 envs on the 3 x 5 course), actuator_train
-(3 epochs) and a 2-point sweep of go1_flat at 16 envs. `ml_dtypes` is
-blocked too: the port reads JAX's bf16 demo files without it. The
-subprocesses run with one OpenMP thread: at 8-16 envs they gain nothing
-from more, and the suite's other workers share the cores.
+(3 epochs) and a 2-point sweep of go1_flat at 16 envs. A third, with the
+same block, runs the tenth slice's phases at small size: go1_mob with bf16
+products (16 envs, a 3 x 3-cell map, narrow widths), 2 gloo ranks against
+1 on go1_flat (16 envs) and on the 3 x 5 parkour course (8 envs), each
+rank a process of chip_smoke.py on CPU tensors, and `record_rollout` of a
+go1_mob policy (8 envs, 8 steps); matplotlib and
+`torch.utils.tensorboard` are imported only where they are used.
+`ml_dtypes` is blocked too: the port reads JAX's bf16 demo files without
+it. The subprocesses run with one OpenMP thread: at 8-16 envs they gain
+nothing from more, and the suite's other workers share the cores.
 """
 import gzip
 import json
@@ -122,7 +128,9 @@ def test_port_imports_no_jax_and_trains_on_cpu():
                 "wtw_tpu_torch.diag_parkour", "wtw_tpu_torch.smoke",
                 "wtw_tpu_torch.envs.depth", "wtw_tpu_torch.learn.ddpg_demos",
                 "wtw_tpu_torch.learn.actuator_train",
-                "wtw_tpu_torch.train_vision", "wtw_tpu_torch.sweep"):
+                "wtw_tpu_torch.train_vision", "wtw_tpu_torch.sweep",
+                "wtw_tpu_torch.parallel", "wtw_tpu_torch.parallel.mesh",
+                "wtw_tpu_torch.utils.video"):
         assert mod in out["modules"]
     assert len(out["multi_rew"]) == 3
     assert all(abs(v) < 1e6 for v in out["multi_rew"])
@@ -347,3 +355,77 @@ def test_port_resumes_jax_files_and_evaluates_without_jax(tmp_path):
     assert vision["generate"]["buffer_bytes"] == 64 * 8 * 3344
     assert out["actuator"]["test_mae"] < out["actuator"]["label_std"]
     assert out["sweep"]["rows"] == 2
+
+
+SLICE_SCRIPT = r"""
+import importlib, json, os, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "wtw_tpu")
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ModuleNotFoundError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import wtw_tpu_torch
+for m in pkgutil.walk_packages(wtw_tpu_torch.__path__, "wtw_tpu_torch."):
+    importlib.import_module(m.name)
+lazy = sorted(m for m in ("matplotlib", "torch.utils.tensorboard")
+              if m in sys.modules)
+import chip_smoke
+out_dir = sys.argv[1]
+ac = ["ac.actor_hidden_dims=32,16", "ac.critic_hidden_dims=32,16",
+      "ac.adaptation_hidden_dims=16"]
+small = ac + ["ppo.num_steps_per_env=4", "terrain.num_rows=3",
+              "terrain.num_cols=3"]
+course = ["terrain.num_levels=3", "terrain.num_terrains=5",
+          "terrain.border_size=4.0", "ppo.hidden=32,16"]
+bf = chip_smoke.phase_bf16_training("cpu", num_envs=16, iterations=1,
+                                    warmup=0, overrides=small)
+ck = os.path.join(out_dir, "mob.pt")
+chip_smoke.phase_preset_training("go1_mob", "cpu", num_envs=16, iterations=1,
+                                 warmup=0, overrides=small, checkpoint_to=ck)
+dist = {"go1_flat": chip_smoke.phase_dist(
+            "go1_flat", "cpu", num_envs=16, iterations=1, num_steps=4,
+            num_minibatches=4, overrides=ac),
+        "parkour": chip_smoke.phase_dist(
+            "parkour", "cpu", num_envs=8, iterations=1, num_steps=4,
+            num_minibatches=2, overrides=course)}
+video = chip_smoke.phase_video_record(ck, "cpu", num_envs=8, steps=8)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+print(json.dumps({"leaked": leaked, "lazy": lazy, "bf16": bf,
+                  "dist": dist, "video": video}))
+"""
+
+
+def test_port_runs_the_tenth_slice_phases_on_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", SLICE_SCRIPT, str(tmp_path)],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=600)
+    assert res.returncode == 0, res.stderr[-4000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out["leaked"] == [] and out["lazy"] == []
+    bf = out["bf16"]
+    assert bf["stored_history_dtype"] == "torch.bfloat16"
+    assert bf["parameter_dtypes"] == bf["adam_moment_dtypes"] == [
+        "torch.float32"]
+    assert bf["hidden_activation_dtypes"] == ["torch.bfloat16"]
+    assert bf["tower_output_dtypes"] == ["torch.float32"] * 2
+    assert bf["first_obs_mean_max_abs_err_vs_fp32"] <= 0.05
+    assert bf["last_call"]["kernel_a_same_bits"]
+    for name, n_rank in (("go1_flat", 8), ("parkour", 4)):
+        d = out["dist"][name]
+        assert d["replicas_bitwise_equal"] and d["num_envs_per_rank"] == n_rank
+        for rec in d["per_rank"] + [d["one_rank"]]:
+            assert rec["launches"] == {"fk": 0, "dynamics": 0}
+            assert rec["last_call"]["kernel_a_same_bits"]
+    # the course has crawl tracks: every kernel B call carries the ceiling
+    for rec in out["dist"]["parkour"]["per_rank"]:
+        assert rec["ceiling"] and rec["dynamics_calls_with_ceiling"] == 16
+    v = out["video"]
+    assert v["shapes"] == [[8, 3], [8, 4], [8, 12]]
+    assert v["bitwise_repeatable"] and v["launches"] == {"fk": 0,
+                                                         "dynamics": 0}
+    assert v["last_call"]["num_envs"] == 8

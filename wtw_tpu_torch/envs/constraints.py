@@ -9,7 +9,10 @@ reference utils/constraint_manager.py:3-121).
 - per-env probability = max over all constraints' columns (:73-77).
 
 Constraints are declared once (names and widths); the state is one flat
-(total_cols,) running-max vector.
+(total_cols,) running-max vector. Under env sharding (`group`) the batch
+max is the group's max and the violation fractions are group means (the
+shards hold equal env counts), so every rank updates the running max
+alike.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import dataclasses
 from typing import Dict, Sequence, Tuple
 
 import torch
+
+from ..parallel.mesh import all_max, all_mean
 
 
 @dataclasses.dataclass
@@ -28,7 +33,8 @@ class CaTManager:
     """Static declaration of the constraint battery."""
 
     def __init__(self, names_widths: Sequence[Tuple[str, int]],
-                 tau: float = 0.95, min_p: float = 0.0, device="cpu"):
+                 tau: float = 0.95, min_p: float = 0.0, device="cpu",
+                 group=None):
         self.names = [n for n, _ in names_widths]
         self.widths = [w for _, w in names_widths]
         self.offsets = {}
@@ -39,6 +45,7 @@ class CaTManager:
         self.total = off
         self.tau = tau
         self.min_p = min_p
+        self.group = group
         # column -> constraint one-hot, for the per-constraint violation
         # fractions in one product
         block = torch.zeros(self.total, len(self.names))
@@ -64,7 +71,8 @@ class CaTManager:
         allc = torch.cat([constraints[n].reshape(
             constraints[n].shape[0], -1).float() for n in self.names], dim=1)
         dev = allc.device
-        batch_max = torch.clamp(allc.max(dim=0).values, min=1e-6)
+        batch_max = all_max(torch.clamp(allc.max(dim=0).values, min=1e-6),
+                            self.group)
         new_rm = self.tau * state.running_max + (1 - self.tau) * batch_max
         maxp = torch.tensor([float(max_ps[n]) for n, w in
                              zip(self.names, self.widths) for _ in range(w)],
@@ -77,7 +85,7 @@ class CaTManager:
         # fraction of envs with any violated column, per constraint
         # (ConstraintManager.log_all / get_vals :104-121)
         hit = ((probs > 0.0).float() @ self._block) > 0.0
-        frac = hit.float().mean(dim=0)
+        frac = all_mean(hit.float().mean(dim=0), self.group)
         viol = dict(zip(self.names, frac.unbind()))
         return CaTState(running_max=new_rm), env_prob, viol, env_argmax_col
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..config import CommandsCfg
+from ..parallel.mesh import all_sum
 
 DIM_NAMES = ("vel_x", "vel_y", "vel_yaw", "body_height", "gait_frequency",
              "gait_phase", "gait_offset", "gait_bound", "gait_duration",
@@ -132,14 +133,18 @@ def apply_gait_category_batched(commands: torch.Tensor, category: torch.Tensor,
 
 def update_weights(grid: CurriculumGrid, weights: torch.Tensor,
                    env_category: torch.Tensor, env_bin: torch.Tensor,
-                   success: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+                   success: torch.Tensor, mask: torch.Tensor,
+                   group=None) -> torch.Tensor:
     """RewardThresholdCurriculum.update (curriculum.py:135-154): each success
     bumps its own bin and every adjacent bin by 0.2 (the own bin, inside its
-    own neighbourhood, gets 0.4), clipped to [0, 1]."""
+    own neighbourhood, gets 0.4), clipped to [0, 1]. Under env sharding the
+    success counts are summed over the `group`, so every rank applies the
+    same update to the one curriculum."""
     n_cat, n_bins = weights.shape
     contrib = (success & mask).float()
     succ = torch.zeros(n_cat, n_bins, device=weights.device)
     succ.index_put_((env_category.long(), env_bin.long()), contrib,
                     accumulate=True)
+    succ = all_sum(succ, group)
     bumps = succ + succ @ grid.adjacency
     return torch.clamp(weights + 0.2 * bumps, 0.0, 1.0)

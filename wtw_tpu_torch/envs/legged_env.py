@@ -11,6 +11,15 @@ Randomness comes from one `torch.Generator` per world (`WorldState.gen`),
 seeded by `init_state(seed)`; the JAX env's per-env key streams cannot be
 reproduced in torch, so the two envs agree only where no draw is made.
 
+Env sharding (`group`, a `torch.distributed` process group): the env steps
+this rank's equal share of `cfg.env.num_envs` (`num_envs` is the shard's
+count, `num_envs_global` the total). Every per-env draw is made at the
+global width from the world's generator, seeded alike on every rank, and
+the rank keeps its own rows, so a sharded run draws what the unsharded
+one draws. The reward-sign test's term totals and the curriculum's
+success counts are summed over the group, and the train/eval split is
+proportional per shard, as in the JAX env under an `axis_name`.
+
 Ported: flat ground and Stack-A heightfield terrain (the corner rows
 gathered once per policy step and reused by the other substeps), PD
 control and the actuator net, the gait clock, pushes, rigid-body DR
@@ -34,6 +43,7 @@ from .. import resolve_device
 from ..config import Cfg
 from ..models.actuator_net import apply_actuator_net, load_actuator_net
 from ..models.robot import RobotModel, default_joint_angles
+from ..parallel.mesh import all_sum, draw_rows, group_size, shard_rows
 from ..physics import (EngineParams, HeightField, PhysicsState,
                        flat_heightfield, physics_step_batched)
 from ..physics.heightfield import height_min3
@@ -115,18 +125,22 @@ class LeggedEnv:
                  heightfield: Optional[HeightField] = None,
                  env_origins: Optional[np.ndarray] = None, device=None,
                  default_joint_q_override=None,
-                 per_env_control: Optional[dict] = None):
+                 per_env_control: Optional[dict] = None, group=None):
         """default_joint_q_override: (N, nj) default joint angles of a
         mixed-robot batch (robots list their legs in different orders).
         per_env_control: its per-env control constants, optional keys
         'p_gains' and 'd_gains' (N, nj) and 'init_pos' (N, 3)
-        (`envs.multi_env.make_multi_legged_env` builds all three)."""
+        (`envs.multi_env.make_multi_legged_env` builds all three).
+        group: a process group to shard the envs over (`env_origins`, if
+        given, holds every env's row)."""
         if cfg.control.control_type not in ("P", "actuator_net"):
             raise NotImplementedError(
                 f"control_type={cfg.control.control_type!r}: the port has "
                 f"PD control and the actuator net")
         # a mixed-robot batch: a per-env model (leading env axis on every
         # array field)
+        if model.batched and group is not None:
+            raise ValueError("env sharding takes one robot model")
         if model.batched:
             if cfg.control.control_type != "P":
                 raise ValueError("a mixed-robot batch uses PD control (per-"
@@ -145,10 +159,19 @@ class LeggedEnv:
         self._nj = model.nj
         self.hf = (heightfield if heightfield is not None
                    else flat_heightfield(device=dev)).to(dev)
-        self.num_envs = cfg.env.num_envs
-        # eval split: the LAST num_eval_envs envs (base_task.py:43-46)
-        self.num_eval_envs = min(cfg.env.num_eval_envs, cfg.env.num_envs - 1)
-        self.num_train_envs = self.num_envs - self.num_eval_envs
+        self.group = group
+        W = group_size(group)
+        if cfg.env.num_envs % W:
+            raise ValueError(f"{cfg.env.num_envs} envs do not shard over "
+                             f"{W} ranks")
+        self.num_envs_global = cfg.env.num_envs
+        self.num_envs = cfg.env.num_envs // W
+        # eval split: the LAST num_eval_envs envs (base_task.py:43-46), of
+        # each shard in proportion
+        n_eval = min(cfg.env.num_eval_envs, cfg.env.num_envs - 1)
+        self.num_train_envs = (self.num_envs * (cfg.env.num_envs - n_eval)
+                               // cfg.env.num_envs)
+        self.num_eval_envs = self.num_envs - self.num_train_envs
         self.num_obs = cfg.env.num_observations
         self.num_privileged_obs = cfg.env.num_privileged_obs
         self.num_actions = cfg.env.num_actions
@@ -239,7 +262,7 @@ class LeggedEnv:
 
         # env origins on a grid for the plane (legged_robot.py:1705-1714)
         if env_origins is None:
-            n = self.num_envs
+            n = self.num_envs_global
             cols = int(np.floor(np.sqrt(n)))
             xx, yy = np.meshgrid(np.arange(int(np.ceil(n / cols))),
                                  np.arange(cols), indexing="ij")
@@ -247,7 +270,7 @@ class LeggedEnv:
             org[:, 0] = 3.0 * xx.flatten()[:n]
             org[:, 1] = 3.0 * yy.flatten()[:n]
             env_origins = org
-        self.env_origins = f32(env_origins)
+        self.env_origins = shard_rows(f32(env_origins), group)
         # spawn position over the origin: (3,), or (N, 3) in a mixed batch
         self.base_init_pos = f32(pec.get("init_pos", cfg.init_state.pos))
         self.push_interval = min(
@@ -270,9 +293,15 @@ class LeggedEnv:
                     f"port yet")
 
     # ------------------------------------------------------------------
+    def _rand(self, gen, shape):
+        """Uniform [0, 1) per-env draws (rows = envs): at the group's
+        global width, this rank's rows kept."""
+        return draw_rows(lambda s: torch.rand(s, generator=gen,
+                                              device=self.device),
+                         shape, self.group)
+
     def _uniform(self, gen, shape, lo, hi):
-        return torch.rand(shape, generator=gen, device=self.device) \
-            * (hi - lo) + lo
+        return self._rand(gen, shape) * (hi - lo) + lo
 
     def init_state(self, seed: int = 0) -> WorldState:
         cfg = self.cfg
@@ -384,14 +413,14 @@ class LeggedEnv:
             success = torch.all(rates > self.curr_thresholds[None, :], dim=-1)
             weights = curr.update_weights(self.grid, weights,
                                           env.env_category, env.env_bin,
-                                          success, mask)
-        cat = torch.randint(0, self.n_categories, (N,), generator=gen,
-                            device=dev)
+                                          success, mask, self.group)
+        cat = draw_rows(lambda s: torch.randint(
+            0, self.n_categories, s, generator=gen, device=dev), (N,),
+            self.group)
         n_dims = self.grid.centers.shape[0]
         cmd, bin_idx = curr.sample_commands_batched(
-            self.grid, weights, cat,
-            torch.rand(N, generator=gen, device=dev),
-            torch.rand(N, n_dims, generator=gen, device=dev))
+            self.grid, weights, cat, self._rand(gen, (N,)),
+            self._rand(gen, (N, n_dims)))
         cmd = cmd[:, :cfg.commands.num_commands]
         if cfg.commands.num_commands > 5 and cfg.commands.gaitwise_curricula:
             cmd = curr.apply_gait_category_batched(
@@ -544,8 +573,9 @@ class LeggedEnv:
         # global gravity randomization (legged_robot.py:701-705)
         if cfg.domain_rand.randomize_gravity:
             if common_step % self.grav_interval == 0:
-                grav_off = self._uniform(gen, (3,),
-                                         *cfg.domain_rand.gravity_range)
+                lo, hi = cfg.domain_rand.gravity_range
+                grav_off = torch.rand(3, generator=gen, device=dev) \
+                    * (hi - lo) + lo
             if (common_step - self.grav_duration) % self.grav_interval == 0:
                 grav_off = torch.zeros(3, device=dev)
 
@@ -606,8 +636,8 @@ class LeggedEnv:
         scaled = raw * self.term_scales[None, :]
 
         # ji22-style positive/negative split by batch-total sign
-        # (legged_robot.py:271-287)
-        sign_pos = scaled.sum(0) >= 0.0
+        # (legged_robot.py:271-287), the group's total under sharding
+        sign_pos = all_sum(scaled.sum(0), self.group) >= 0.0
         zero = torch.zeros_like(scaled)
         rew_pos = torch.where(sign_pos[None, :], scaled, zero).sum(-1)
         rew_neg = torch.where(sign_pos[None, :], zero, scaled).sum(-1)
@@ -740,8 +770,7 @@ class LeggedEnv:
             base_quat=phys.base_quat,
             contact_states=torch.zeros(N, 4, device=self.device))
         if cfg.noise.add_noise:
-            obs = obs + (2 * torch.rand(obs.shape, generator=world.gen,
-                                        device=self.device) - 1) \
+            obs = obs + (2 * self._rand(world.gen, obs.shape) - 1) \
                 * self.noise_vec
         priv = observations.build_privileged_obs(
             cfg, friction=env.friction, restitution=env.restitution,
@@ -781,7 +810,7 @@ class LeggedEnv:
 
 def make_legged_env(cfg: Cfg, robot: Optional[RobotModel] = None,
                     device=None, seed: int = 0,
-                    eval_terrain_cfg=None) -> LeggedEnv:
+                    eval_terrain_cfg=None, group=None) -> LeggedEnv:
     """Build a LeggedEnv, generating the Stack-A terrain and the env
     origins on it when `cfg.terrain.mesh_type` is 'heightfield'
     (`wtw_tpu/envs/__init__.py`; the reference's LeggedRobot.create_sim,
@@ -798,5 +827,5 @@ def make_legged_env(cfg: Cfg, robot: Optional[RobotModel] = None,
         origins, _, _ = assign_env_origins(tm, cfg.env.num_envs, cfg.terrain,
                                            seed=seed)
         return LeggedEnv(cfg, robot, heightfield=to_heightfield(tm, dev),
-                         env_origins=origins, device=dev)
-    return LeggedEnv(cfg, robot, device=device)
+                         env_origins=origins, device=dev, group=group)
+    return LeggedEnv(cfg, robot, device=device, group=group)

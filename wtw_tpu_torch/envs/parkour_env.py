@@ -43,6 +43,7 @@ from .. import resolve_device
 from ..config import TerrainCfg
 from ..models.actuator_net import apply_actuator_net, load_actuator_net
 from ..models.robot import RobotModel, default_joint_angles
+from ..parallel.mesh import draw_rows, group_size, shard_rows
 from ..physics import EngineParams, PhysicsState, physics_step_batched
 from ..physics.heightfield import height_min3
 from ..terrain import (ParkourTerrainCfg, assign_env_origins,
@@ -331,7 +332,12 @@ class ParkourEnv:
     done_prob (N,), info)."""
 
     def __init__(self, cfg: ParkourCfg, model: RobotModel, seed: int = 0,
-                 device=None):
+                 device=None, group=None):
+        """group: a process group to shard the envs over: this rank steps
+        its equal share of `cfg.num_envs` (`num_envs`; the total is
+        `num_envs_global`), draws every per-env tensor at the global width
+        keeping its own rows, and takes CaT's batch max and violation
+        fractions over the group."""
         if cfg.task not in ("parkour", "terrain"):
             raise ValueError(f"task {cfg.task!r}: 'parkour' or 'terrain'")
         if cfg.reward_mode not in ("cat", "full"):
@@ -342,7 +348,13 @@ class ParkourEnv:
         self.cfg = cfg
         self.model = model.to(dev)
         model = self.model
-        self.num_envs = cfg.num_envs
+        self.group = group
+        W = group_size(group)
+        if cfg.num_envs % W:
+            raise ValueError(f"{cfg.num_envs} envs do not shard over {W} "
+                             f"ranks")
+        self.num_envs_global = cfg.num_envs
+        self.num_envs = cfg.num_envs // W
         self.num_actions = cfg.num_actions
         self.dt = cfg.policy_dt
         self.max_episode_length = cfg.max_episode_length
@@ -371,10 +383,11 @@ class ParkourEnv:
             self.num_terrain_levels = cfg.terrain.num_levels
         self.hf = to_heightfield(tm, device=dev)
         self.terrain_origins = f32(tm.env_origins)           # (lvl, type, 3)
-        self.init_origins = f32(origins)
-        self.init_levels = torch.as_tensor(levels, dtype=torch.long,
-                                           device=dev)
-        self.init_types = torch.as_tensor(types, dtype=torch.long, device=dev)
+        self.init_origins = shard_rows(f32(origins), group)
+        self.init_levels = shard_rows(torch.as_tensor(
+            levels, dtype=torch.long, device=dev), group)
+        self.init_types = shard_rows(torch.as_tensor(
+            types, dtype=torch.long, device=dev), group)
 
         self.engine_params = EngineParams(
             dt=cfg.dt, contact_stiffness=cfg.contact_stiffness,
@@ -412,7 +425,7 @@ class ParkourEnv:
             dtype=torch.float32, device=dev)
 
         self.cstr = CaTManager(_constraint_decls(model.nj), tau=cfg.cat_tau,
-                               min_p=cfg.cat_min_p, device=dev)
+                               min_p=cfg.cat_min_p, device=dev, group=group)
         self.cstr_names = list(self.cstr.names)
         self.n_metrics = 2 + len(self.cstr_names)
 
@@ -481,12 +494,18 @@ class ParkourEnv:
             parts.append(np.zeros(4))
         return np.concatenate(parts).astype(np.float32) * cfg.noise_level
 
+    def _rand(self, gen, shape):
+        """Uniform [0, 1) per-env draws (rows = envs): at the group's
+        global width, this rank's rows kept."""
+        return draw_rows(lambda s: torch.rand(s, generator=gen,
+                                              device=self.device),
+                         shape, self.group)
+
     def _uniform(self, gen, shape, lo, hi):
-        return torch.rand(shape, generator=gen, device=self.device) \
-            * (hi - lo) + lo
+        return self._rand(gen, shape) * (hi - lo) + lo
 
     def _bernoulli(self, gen, p, n):
-        return torch.rand(n, generator=gen, device=self.device) < p
+        return self._rand(gen, (n,)) < p
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> ParkourWorld:
@@ -982,8 +1001,9 @@ class ParkourEnv:
         move_up = dist > self.track_length * 0.8
         move_down = dist < self.track_length * 0.5
         lvl = env.terrain_level + move_up.long() - move_down.long()
-        rand_lvl = torch.randint(0, self.num_terrain_levels, (N,),
-                                 generator=gen, device=self.device)
+        rand_lvl = draw_rows(lambda s: torch.randint(
+            0, self.num_terrain_levels, s, generator=gen,
+            device=self.device), (N,), self.group)
         lvl = torch.where(lvl >= self.num_terrain_levels, rand_lvl,
                           torch.clamp(lvl, min=0))
         # 1% teleport back to level 0 when not moving up (:1180)
@@ -1056,7 +1076,7 @@ class ParkourEnv:
         # resample with p = 1% (slow command) + 0.2%
         p_res = 0.01 * (torch.linalg.vector_norm(cmd[:, :2], dim=1)
                         < 0.5).float() + 0.002
-        do_res = torch.rand(N, generator=gen, device=self.device) < p_res
+        do_res = self._rand(gen, (N,)) < p_res
         cmd = _where(do_res, self._sample_commands(gen, N), cmd)
         # ang-vel sign flips with p = dt / episode_length_s
         flip = self._bernoulli(gen, self.dt / cfg.episode_length_s, N)
@@ -1125,8 +1145,7 @@ class ParkourEnv:
             blocks.append(env.clock_inputs)
         obs = torch.cat(blocks, dim=-1)
         if cfg.add_noise:
-            noise = 2 * torch.rand(obs.shape, generator=gen,
-                                   device=self.device) - 1
+            noise = 2 * self._rand(gen, obs.shape) - 1
             obs = obs + noise * self.noise_vec
         return obs
 

@@ -13,9 +13,19 @@ of `wtw_tpu/learn/cat_ppo.py`, reference algos/PPO.py:14-330).
 
 The optimizer follows the JAX package's optax chain: clip the global
 gradient norm at `max_grad_norm`, then Adam with eps 1e-5 outside the sqrt
-(`torch.optim.Adam` computes the same update). The JAX package's
-`sharding_invariant` mode belongs to multi-device training, which is a
-later slice; this learner is the default (reference) mode.
+(`torch.optim.Adam` computes the same update).
+
+Env-sharded data parallelism (`group`, `parallel.mesh`): gradients and the
+loss statistics are averaged over the group and the episode counts
+summed, in every CaT learner. This learner also takes the normalizers'
+moments (averaged, the count summed) and the advantage moments over the
+group, and has `CatPPOArgs.sharding_invariant`: per-env action noise (at
+the group's global width, this rank's rows) and env-strided minibatches
+(env n to minibatch n % M, the same in every epoch), so a sharded run
+trains as the unsharded one, here to the bit (each product on one env
+block's rows, each sum over envs a fixed tree over the blocks:
+`parallel.mesh`). PPO+ and PPO-RNN keep per-rank normalizers and
+advantage moments, as the JAX learners do (`GROUP_MOMENTS`).
 """
 from __future__ import annotations
 
@@ -27,6 +37,8 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import (all_mean, all_mean_grads_, all_sum, draw_rows,
+                             invariant_blocks, invariant_grads, invariant_sum)
 from .ppo_cse import clip_by_global_norm_
 
 
@@ -49,6 +61,10 @@ class CatPPOArgs:
     anneal_lr: bool = True
     std_floor: float = 0.0            # 0 = free logstd (reference-exact)
     hidden: tuple = (512, 256, 128)
+    # per-env action noise and env-strided minibatches reused across
+    # epochs: an env-sharded run trains as the unsharded one (default off:
+    # a fresh permutation per epoch, algos/PPO.py:276-285)
+    sharding_invariant: bool = False
 
 
 @dataclasses.dataclass
@@ -65,10 +81,29 @@ class RMSState:
                    count=torch.ones((), device=device))
 
 
-def rms_update(s: RMSState, x: torch.Tensor) -> RMSState:
-    bm = x.mean(dim=0)
-    bv = (x * x).mean(dim=0) - bm * bm
-    bc = x.shape[0]
+def rms_update(s: RMSState, x: torch.Tensor, group=None,
+               blocks=None) -> RMSState:
+    """Fold the batch `x` (rows, or (T, envs) for a scalar normalizer) in;
+    over a `group` the batch moments are the group's means and its count
+    the group's total. With env `blocks` (sharding invariance) the sums are
+    block trees (`parallel.mesh.invariant_sum`), envs on x's last axis for
+    a scalar normalizer and its first otherwise."""
+    W = 1 if group is None else group.size()
+    if blocks is not None:
+        feat = s.mean.shape
+        env_dim = x.dim() - 1 - len(feat)
+        part = lambda f, b: f(x.narrow(env_dim, b.start, b.stop - b.start)
+                              ).contiguous().reshape((-1,) + feat).sum(0)
+        n = x.numel() // max(s.mean.numel(), 1) * W
+        bm = invariant_sum([part(lambda y: y, b) for b in blocks], group) / n
+        ex2 = invariant_sum([part(lambda y: y * y, b) for b in blocks],
+                            group) / n
+        bc = n
+    else:
+        bm = all_mean(x.mean(dim=0), group)
+        ex2 = all_mean((x * x).mean(dim=0), group)
+        bc = x.shape[0] * W
+    bv = ex2 - bm * bm
     delta = bm - s.mean
     tot = s.count + bc
     m2 = s.var * s.count + bv * bc + delta * delta * s.count * bc / tot
@@ -142,27 +177,32 @@ def cat_gae(rewards, dones, true_dones, values, next_value, next_done,
     return advs, advs + values
 
 
-def clipped_terms(args: CatPPOArgs, logp, old_logp, adv, newv, ret_n, val_n):
+def clipped_terms(args: CatPPOArgs, logp, old_logp, adv, newv, ret_n, val_n,
+                  group=None):
     """The clipped surrogate on advantages normalized over the minibatch
-    (population std, as `jnp.std`) and the clipped value loss on normalized
-    values; -> (pg_loss, v_loss)."""
-    ratio = torch.exp(logp - old_logp)
+    (population std, as `jnp.std`; the group's minibatch under sharding)
+    and the clipped value loss on normalized values; -> (pg_loss,
+    v_loss)."""
     if args.norm_adv:
-        m = adv.mean()
-        v = ((adv - m) ** 2).mean()
+        m = all_mean(adv.mean(), group)
+        v = all_mean(((adv - m) ** 2).mean(), group)
         adv = (adv - m) / (torch.sqrt(v) + 1e-8)
-    pg_loss = torch.maximum(
+    pg, v_rows = clipped_rows(args, logp, old_logp, adv, newv, ret_n, val_n)
+    return pg.mean(), 0.5 * v_rows.mean()
+
+
+def clipped_rows(args: CatPPOArgs, logp, old_logp, adv, newv, ret_n, val_n):
+    """Per-sample clipped surrogate and squared value error (the value
+    loss is half their mean) on already normalized advantages."""
+    ratio = torch.exp(logp - old_logp)
+    pg = torch.maximum(
         -adv * ratio,
-        -adv * torch.clamp(ratio, 1 - args.clip_coef, 1 + args.clip_coef)
-    ).mean()
+        -adv * torch.clamp(ratio, 1 - args.clip_coef, 1 + args.clip_coef))
     if args.clip_vloss:
         v_cl = val_n + torch.clamp(newv - val_n, -args.clip_coef,
                                    args.clip_coef)
-        v_loss = 0.5 * torch.maximum((newv - ret_n) ** 2,
-                                     (v_cl - ret_n) ** 2).mean()
-    else:
-        v_loss = 0.5 * ((newv - ret_n) ** 2).mean()
-    return pg_loss, v_loss
+        return pg, torch.maximum((newv - ret_n) ** 2, (v_cl - ret_n) ** 2)
+    return pg, (newv - ret_n) ** 2
 
 
 @dataclasses.dataclass
@@ -187,9 +227,17 @@ class CatPPO:
     LOSS_KEYS = ("loss", "pg_loss", "value_loss")
     # the JAX CaT learner floors the log-std after each step; PPO+ does not
     APPLIES_STD_FLOOR = True
+    # normalizer and advantage moments over the group, and the
+    # sharding_invariant mode: the JAX CaT learner has them, PPO+ and
+    # PPO-RNN do not
+    GROUP_MOMENTS = True
 
-    def __init__(self, env, args: CatPPOArgs = CatPPOArgs(), seed: int = 0):
-        self.env, self.args = env, args
+    def __init__(self, env, args: CatPPOArgs = CatPPOArgs(), seed: int = 0,
+                 group=None):
+        """group: a process group of env-sharded data parallelism
+        (`parallel.mesh`), or None."""
+        self.env, self.args, self.group = env, args, group
+        self.moments_group = group if self.GROUP_MOMENTS else None
         dev = env.device
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(int(seed) + 1)
@@ -227,25 +275,50 @@ class CatPPO:
         self.next_done, self.next_true_done = (blob["next_done"],
                                                blob["next_true_done"])
 
+    def invariant(self) -> bool:
+        """The sharding_invariant mode (CaT PPO only, as in JAX)."""
+        return self.args.sharding_invariant and self.GROUP_MOMENTS
+
+    def blocks(self, n: int):
+        return invariant_blocks(n, self.group)
+
+    def per_block(self, f, x):
+        """f over x's rows, one env block at a time under sharding
+        invariance (a product's rows then do not depend on the width)."""
+        if not self.invariant():
+            return f(x)
+        return torch.cat([f(x[b]) for b in self.blocks(x.shape[0])])
+
     def observe(self, obs: torch.Tensor) -> torch.Tensor:
         """Fold a raw observation into the normalizer; -> normalized."""
-        self.obs_rms = rms_update(self.obs_rms, obs)
+        self.obs_rms = rms_update(
+            self.obs_rms, obs, self.moments_group,
+            self.blocks(obs.shape[0]) if self.invariant() else None)
         return rms_norm(self.obs_rms, obs)
 
     # ------------------------------------------------------------------
     def sample(self, t: int, mean, noise=None):
-        """mean + std eps; `noise` (T, N, A) replaces the drawn eps."""
-        eps = (noise[t] if noise is not None else torch.randn(
-            mean.shape, generator=self.gen, device=mean.device))
+        """mean + std eps; `noise` (T, N, A) replaces the drawn eps. Under
+        sharding_invariant eps is drawn per env (the group's global width,
+        this rank's rows)."""
+        draw = lambda shape: torch.randn(shape, generator=self.gen,
+                                         device=mean.device)
+        if noise is not None:
+            eps = noise[t]
+        elif self.args.sharding_invariant and self.GROUP_MOMENTS:
+            eps = draw_rows(draw, mean.shape, self.group)
+        else:
+            eps = draw(mean.shape)
         return mean + torch.exp(self.agent.actor_logstd) * eps
 
     def act(self, t: int, obs_norm, noise=None):
         """The rollout's step-t policy: sampled actions, their log-prob and
         the value."""
         agent = self.agent
-        mean = agent.actor_mean(obs_norm)
+        mean = self.per_block(agent.actor_mean, obs_norm)
         actions = self.sample(t, mean, noise)
-        return actions, agent.log_prob(mean, actions), agent.value(obs_norm)
+        return (actions, agent.log_prob(mean, actions),
+                self.per_block(agent.value, obs_norm))
 
     @torch.no_grad()
     def rollout(self, world, obs_norm, noise: Optional[torch.Tensor] = None,
@@ -271,14 +344,17 @@ class CatPPO:
             dones_t = dones_t + info["dones_by_type"]
         self.next_done, self.next_true_done = done, true_done
         traj = CatRollout(*[torch.stack(x) for x in zip(*steps)])
+        g = self.group
+        n_resets = all_sum(n_resets, g)
         total = torch.clamp(n_resets, min=1)
         metrics = {
-            "terrain_level_mean": info["terrain_level_mean"],
-            "episode_sums": ep_sums / total,
-            "mean_episode_length": ep_len / total * env.dt,
+            "terrain_level_mean": all_mean(info["terrain_level_mean"], g),
+            "episode_sums": all_sum(ep_sums, g) / total,
+            "mean_episode_length": all_sum(ep_len, g) / total * env.dt,
             "num_episodes": n_resets,
-            "crossings_by_type": cross, "dones_by_type": dones_t,
-            "mean_step_reward": traj.rewards.mean(),
+            "crossings_by_type": all_sum(cross, g),
+            "dones_by_type": all_sum(dones_t, g),
+            "mean_step_reward": all_mean(traj.rewards.mean(), g),
         }
         return world, obs_norm, traj, metrics
 
@@ -291,7 +367,7 @@ class CatPPO:
         logp = agent.log_prob(agent.actor_mean(obs), actions)
         pg_loss, v_loss = clipped_terms(
             args, logp, old_logp, adv, rms_norm(value_rms, agent.value(obs)),
-            ret_n, val_n)
+            ret_n, val_n, self.moments_group)
         loss = pg_loss - args.ent_coef * agent.entropy() + args.vf_coef * v_loss
         return loss, pg_loss, v_loss
 
@@ -314,6 +390,13 @@ class CatPPO:
         the detached row of `out`."""
         self.opt.zero_grad(set_to_none=True)
         out[0].backward()
+        all_mean_grads_(list(self.agent.parameters()), self.group)
+        self.step()
+        return torch.stack([x.detach() for x in out])
+
+    def step(self):
+        """Clip the gradients' global norm, the Adam step, the std
+        floor."""
         clip_by_global_norm_(list(self.agent.parameters()),
                              self.args.max_grad_norm)
         self.opt.step()
@@ -321,13 +404,13 @@ class CatPPO:
             with torch.no_grad():
                 self.agent.actor_logstd.clamp_(
                     min=math.log(self.args.std_floor))
-        return torch.stack([x.detach() for x in out])
 
     def stats(self, rows, lr) -> Dict[str, torch.Tensor]:
         """Minibatch rows averaged under LOSS_KEYS, the lr, one iteration
         more."""
         self.iteration += 1
-        stats = dict(zip(self.LOSS_KEYS, torch.stack(rows).mean(0).unbind()))
+        stats = dict(zip(self.LOSS_KEYS, all_mean(
+            torch.stack(rows).mean(0), self.group).unbind()))
         stats["lr"] = lr
         return stats
 
@@ -338,6 +421,8 @@ class CatPPO:
         permutations."""
         args, agent = self.args, self.agent
         T, N = traj.rewards.shape
+        if perms is None and self.invariant():
+            return self._invariant_update(traj, next_obs_norm)
         with torch.no_grad():
             next_value = agent.value(next_obs_norm)
         advs, returns = cat_gae(traj.rewards, traj.dones, traj.true_dones,
@@ -349,22 +434,103 @@ class CatPPO:
             traj.logp)
         b_adv, b_ret, b_val = flat(advs), flat(returns), flat(traj.values)
         # value normalization over the batch (algos/PPO.py:273-275)
-        value_rms = rms_update(rms_update(self.value_rms, b_val), b_ret)
+        mg = self.moments_group
+        value_rms = rms_update(rms_update(self.value_rms, b_val, mg), b_ret,
+                               mg)
         self.value_rms = value_rms
         b_val_n, b_ret_n = rms_norm(value_rms, b_val), rms_norm(value_rms,
                                                                 b_ret)
         lr = self.set_lr()
-        mb = T * N // args.num_minibatches
+        M = args.num_minibatches
+        mb = T * N // M
         rows = []
         for ep in range(args.update_epochs):
             perm = (perms[ep] if perms is not None else torch.randperm(
                 T * N, generator=self.gen, device=b_obs.device))
-            for idx in perm[:mb * args.num_minibatches].reshape(
-                    args.num_minibatches, mb):
+            for idx in perm[:mb * M].reshape(M, mb):
                 batch = (b_obs[idx], b_act[idx], b_logp[idx], b_adv[idx],
                          b_ret_n[idx], b_val_n[idx])
                 rows.append(self.optimize(self.loss(batch, value_rms)))
         return self.stats(rows, lr)
+
+    def _invariant_update(self, traj: CatRollout, next_obs_norm):
+        """`update` under sharding_invariant, block by block: minibatch m
+        holds the envs n with n % M == m in every epoch, each block's rows
+        in timestep order; the value normalizer's and each minibatch's
+        advantage moments and every loss are sums over a block's rows as a
+        tree over the blocks, each block's gradient taken apart and summed
+        as a tree (`parallel.mesh.invariant_grads`), the entropy term's
+        added once."""
+        args, agent, g = self.args, self.agent, self.group
+        T, N = traj.rewards.shape
+        M, W = args.num_minibatches, 1 if g is None else g.size()
+        if N % M:
+            raise ValueError(f"sharding_invariant: {N} envs a shard do not "
+                             f"divide into {M} minibatches")
+        blocks = self.blocks(N)
+        with torch.no_grad():
+            next_value = self.per_block(agent.value, next_obs_norm)
+        advs, returns = cat_gae(traj.rewards, traj.dones, traj.true_dones,
+                                traj.values, next_value, self.next_done,
+                                self.next_true_done, args.gamma,
+                                args.gae_lambda)
+        value_rms = rms_update(rms_update(self.value_rms, traj.values, g,
+                                          blocks), returns, g, blocks)
+        self.value_rms = value_rms
+        flat = lambda x: x.reshape((T * N,) + x.shape[2:])
+        data = [flat(x) for x in (traj.obs, traj.actions, traj.logp, advs,
+                                  rms_norm(value_rms, returns),
+                                  rms_norm(value_rms, traj.values))]
+        dev = traj.rewards.device
+        rows = {}
+        for m in range(M):
+            for i, b in enumerate(blocks):
+                envs = torch.arange(b.start, b.stop, device=dev)
+                envs = envs[envs % M == m]
+                rows[m, i] = (torch.arange(T, device=dev)[:, None] * N
+                              + envs[None]).reshape(-1)
+        cnt = T * N * W // M
+        params = list(agent.parameters())
+        lr = self.set_lr()
+        out = []
+        for _ in range(args.update_epochs):
+            for m in range(M):
+                out.append(self._invariant_step(
+                    [[x[rows[m, i]] for x in data]
+                     for i in range(len(blocks))], value_rms, cnt, params))
+        return self.stats(out, lr)
+
+    def _invariant_step(self, batches, value_rms, cnt, params):
+        """One minibatch of `_invariant_update`; -> (loss, pg, v)."""
+        args, agent, g = self.args, self.agent, self.group
+        if args.norm_adv:
+            m = invariant_sum([b[3].sum() for b in batches], g) / cnt
+            v = invariant_sum([((b[3] - m) ** 2).sum() for b in batches],
+                              g) / cnt
+        grads, aux = [], []
+        for obs, act, logp0, adv, ret_n, val_n in batches:
+            if args.norm_adv:
+                adv = (adv - m) / (torch.sqrt(v) + 1e-8)
+            pg, v_rows = clipped_rows(
+                args, agent.log_prob(agent.actor_mean(obs), act), logp0, adv,
+                rms_norm(value_rms, agent.value(obs)), ret_n, val_n)
+            pg, vl = pg.sum(), 0.5 * v_rows.sum()
+            grads.append(torch.autograd.grad(
+                (pg + args.vf_coef * vl) / cnt, params, allow_unused=True))
+            aux.append(torch.stack([pg.detach(), vl.detach()]))
+        pg, vl = (invariant_sum(aux, g) / cnt).unbind()
+        ent = agent.entropy()
+        (g_ent,) = torch.autograd.grad(-args.ent_coef * ent,
+                                       agent.actor_logstd)
+        grads = invariant_grads(grads, g)
+        i = next(i for i, p in enumerate(params) if p is agent.actor_logstd)
+        grads[i] = grads[i] + g_ent
+        self.opt.zero_grad(set_to_none=True)
+        for p, gr in zip(params, grads):
+            p.grad = gr
+        self.step()
+        return torch.stack([pg - args.ent_coef * ent.detach()
+                            + args.vf_coef * vl, pg, vl])
 
     def train_iteration(self, world, obs_norm, noise=None, perms=None):
         """Rollout + update; -> (world, next normalized obs, stats)."""

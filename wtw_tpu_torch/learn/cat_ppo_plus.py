@@ -68,6 +68,7 @@ class CatPPOPlus(CatPPO):
 
     LOSS_KEYS = ("loss", "pg_loss", "value_loss", "q_loss")
     APPLIES_STD_FLOOR = False
+    GROUP_MOMENTS = False
 
     def make_agent(self, generator):
         return PlusAgent(self.env.num_obs, self.env.num_actions,

@@ -29,6 +29,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from ..parallel.mesh import all_mean
 from .cat_ppo import (CatAgent, CatPPO, CatPPOArgs, CatRollout, cat_gae,
                       clipped_terms, rms_norm, rms_update)
 
@@ -78,9 +79,11 @@ class CatPPORNN(CatPPO):
     the carried hiddens (N, rnn_hidden_dim) of both memories."""
 
     APPLIES_STD_FLOOR = False
+    GROUP_MOMENTS = False
 
-    def __init__(self, env, args: RNNArgs = RNNArgs(), seed: int = 0):
-        super().__init__(env, args, seed)
+    def __init__(self, env, args: RNNArgs = RNNArgs(), seed: int = 0,
+                 group=None):
+        super().__init__(env, args, seed, group)
         shape = (env.num_envs, args.rnn_hidden_dim)
         self.ac_hidden = torch.zeros(shape, device=env.device)
         self.cr_hidden = torch.zeros(shape, device=env.device)
@@ -123,8 +126,8 @@ class CatPPORNN(CatPPO):
         self.ac_hidden, self.cr_hidden = ac_h, cr_h
         traj = RNNRollout(*[torch.stack(x) for x in zip(*steps)],
                           ac_h0=ac_h0, cr_h0=cr_h0)
-        return world, obs_norm, traj, {"mean_step_reward":
-                                       traj.rewards.mean()}
+        return world, obs_norm, traj, {"mean_step_reward": all_mean(
+            traj.rewards.mean(), self.group)}
 
     def replay(self, obs, ac_h, cr_h, true_dones):
         """Both GRUs over (T, B, obs) from the given hiddens, zeroing them

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ..models import actor_critic as ac
+from ..parallel.mesh import all_mean, all_mean_grads_
 from .ppo_cse import PPOArgs, clip_by_global_norm_, compute_gae
 
 
@@ -101,8 +102,11 @@ class RMA:
     action noise and the permutation."""
 
     def __init__(self, env, args: PPOArgs = PPOArgs(),
-                 rma: RMAArgs = RMAArgs(), seed: int = 0):
-        self.env, self.args = env, args
+                 rma: RMAArgs = RMAArgs(), seed: int = 0, group=None):
+        """group: a process group of env-sharded data parallelism
+        (`parallel.mesh`): gradients, the KL and the statistics are
+        averaged over it, where the JAX learner pmeans them."""
+        self.env, self.args, self.group = env, args, group
         dev = env.device
         self.gen = torch.Generator(device=dev)
         self.gen.manual_seed(int(seed) + 1)
@@ -209,6 +213,8 @@ class RMA:
         loss, surr, v_loss, kl = self.ppo_loss(obs, priv, actions, logp, mu,
                                                old_std, values, adv, ret)
         loss.backward()
+        all_mean_grads_(list(self.model.parameters()), self.group)
+        kl = all_mean(kl, self.group)
         if args.desired_kl is not None and args.schedule == "adaptive":
             k = float(kl)
             if k > args.desired_kl * 2.0:
@@ -225,6 +231,8 @@ class RMA:
             self.adapt_opt.zero_grad(set_to_none=True)
             a_loss = self.adaptation_loss(obs_h, priv)
             a_loss.backward()
+            all_mean_grads_(list(self.model.adaptation.parameters()),
+                            self.group)
             self.adapt_opt.step()
         return torch.stack([loss.detach(), surr.detach(), v_loss.detach(),
                             kl, a_loss.detach()])
@@ -261,7 +269,8 @@ class RMA:
         self.iteration += 1
         keys = ("loss", "surrogate_loss", "value_loss", "kl_mean",
                 "adaptation_loss")
-        stats = dict(zip(keys, torch.stack(rows).mean(0).unbind()))
+        stats = dict(zip(keys, all_mean(torch.stack(rows).mean(0),
+                                        self.group).unbind()))
         stats["lr"] = self.lr
         return stats
 
@@ -269,5 +278,5 @@ class RMA:
         """Rollout + update; -> (world, obs_dict, stats)."""
         world, obs_dict, traj, metrics = self.rollout(world, obs_dict, noise)
         stats = self.update(traj, obs_dict, perm)
-        stats.update(metrics)
+        stats.update({k: all_mean(v, self.group) for k, v in metrics.items()})
         return world, obs_dict, stats

@@ -10,7 +10,12 @@ generators) plus the deployment export `checkpoints/policy_<tag>.npz` in the
 JAX runner's key layout (`adaptation/w{i}`, `actor/b{i}`, ..., weights
 stored (in, out)), which `wtw_tpu/deploy/policy.py` loads unchanged.
 `load` also takes the JAX runner's checkpoints (`.pkl`, `.pkl.gz`; see
-`jax_checkpoint.py`).
+`jax_checkpoint.py`). As the JAX runner does, it also writes TensorBoard
+events under `<run_dir>/tb` with the same custom-scalar layout (CSV only
+where `torch.utils.tensorboard` does not import), a `torch.profiler`
+trace of iterations [profile_start, profile_start + profile_iters) to
+`<run_dir>/profile`, and a rendered rollout `video_<it>.mp4` (or `.gif`)
+every `save_video_interval` iterations (`utils/video.py`).
 """
 from __future__ import annotations
 
@@ -32,12 +37,57 @@ from .ppo_rma import RMA
 
 @dataclass
 class RunnerArgs:
+    save_video_interval: int = 0          # a rendered rollout every N its
     log_freq: int = 10
     save_interval: int = 400
     run_dir: str = "runs/default"
     resume: bool = False
     resume_path: Optional[str] = None
+    tensorboard: bool = True              # events under <run_dir>/tb
+    # torch.profiler trace of iterations [profile_start, profile_start +
+    # profile_iters) into <run_dir>/profile (-1: off)
+    profile_start: int = -1
+    profile_iters: int = 3
     console_table_freq: int = 0           # the reward terms as a table
+
+
+# the JAX runner's TensorBoard "Custom Scalars" layout (the reference's
+# .charts.yml dashboard, scripts/go1/train.py:227-253)
+TB_LAYOUT = {
+    "training": {
+        "episode reward": ["Multiline", ["rew_total"]],
+        "tracking": ["Multiline", [
+            "rew_tracking_lin_vel", "rew_tracking_ang_vel"]],
+        "gait shaping": ["Multiline", [
+            "rew_tracking_contacts_shaped_force",
+            "rew_tracking_contacts_shaped_vel", "rew_orientation_control"]],
+        "smoothness": ["Multiline", [
+            "rew_action_smoothness_1", "rew_action_smoothness_2",
+            "rew_dof_pos"]],
+        "adaptation loss": ["Multiline", ["adaptation_loss"]],
+    },
+    "optimization": {
+        "losses": ["Multiline", ["value_loss", "surrogate_loss"]],
+        "kl / lr": ["Multiline", ["kl_mean", "lr"]],
+        "throughput": ["Multiline", ["steps_per_s"]],
+    },
+    "eval": {
+        "train vs eval reward": ["Multiline", ["rew_total",
+                                               "eval_rew_total"]],
+    },
+}
+
+
+def _summary_writer(run_dir: str):
+    """A SummaryWriter on <run_dir>/tb with TB_LAYOUT, or None where
+    `torch.utils.tensorboard` (or its `tensorboard` package) is absent."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+        tb = SummaryWriter(os.path.join(run_dir, "tb"))
+        tb.add_custom_scalars(TB_LAYOUT)
+        return tb
+    except Exception:
+        return None
 
 
 def _sync(device):
@@ -113,9 +163,19 @@ class Runner:
                     exist_ok=True)
         self._csv_path = os.path.join(runner_args.run_dir, "metrics.csv")
         self._csv_keys = None
+        self._tb = (_summary_writer(runner_args.run_dir)
+                    if runner_args.tensorboard else None)
         self.last_stats = None
         if runner_args.resume and runner_args.resume_path:
             self.load(runner_args.resume_path)
+
+    def _profiler(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.env.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.__enter__()
+        return prof
 
     def learn(self, num_learning_iterations: int, log_fn=print):
         """ppo_cse/__init__.py:107-229 analog. Returns the per-iteration
@@ -125,12 +185,25 @@ class Runner:
         it0 = self.ppo.iteration
         t_start = time.perf_counter()
         walls = []
+        prof = None
         for it in range(it0, it0 + num_learning_iterations):
             t0 = time.perf_counter()
+            if it == ra.profile_start:
+                prof = self._profiler()
             self.world, self.obs_dict, stats = self.ppo.train_iteration(
                 self.world, self.obs_dict)
             _sync(dev)
             walls.append(time.perf_counter() - t0)
+            if prof is not None and (
+                    it == ra.profile_start + ra.profile_iters - 1
+                    or it == it0 + num_learning_iterations - 1):
+                prof.__exit__(None, None, None)
+                out = os.path.join(ra.run_dir, "profile")
+                os.makedirs(out, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(
+                    out, f"trace_{ra.profile_start}.json"))
+                prof = None
+                log_fn(f"profiler trace -> {out}")
             self.last_stats = stats
             if it % ra.log_freq == 0 or it == it0 + num_learning_iterations - 1:
                 f = lambda k: float(stats[k])
@@ -157,6 +230,11 @@ class Runner:
                         stats["eval_episode_reward_sums"][-1])
                     row["eval_num_episodes"] = f("eval_num_episodes")
                 self._write_csv(row)
+                if self._tb is not None:
+                    for k, v in row.items():
+                        if k != "iteration":
+                            self._tb.add_scalar(k, v, it)
+                    self._tb.flush()
                 log_fn(f"it {it:6d} | {row['steps_per_s']:.0f} steps/s | "
                        f"rew {row['mean_step_reward']:.4f} | "
                        f"ep_rew {row['rew_total']:.2f} | "
@@ -169,8 +247,23 @@ class Runner:
                          if k.startswith("rew_")}, title=f"iter {it}"))
             if ra.save_interval and it % ra.save_interval == 0 and it > 0:
                 self.save(it)
+            if ra.save_video_interval and it % ra.save_video_interval == 0 \
+                    and it > 0:
+                self.record_video(tag=it)
         self.save("last")
         return walls
+
+    def record_video(self, tag="last", steps: int = 250) -> str:
+        """Record and render a rollout of the current student policy (the
+        reference's camera mp4 every save_video_interval,
+        ppo_cse/__init__.py:277-296); -> the file written."""
+        from ..utils.video import record_rollout, render_trajectory
+        policy = self.get_inference_policy()
+        traj = record_rollout(
+            self.env, lambda obs: policy(obs["obs_history"]), steps=steps)
+        path = os.path.join(self.runner_args.run_dir, f"video_{tag}.mp4")
+        return render_trajectory(traj, self.env.model, hf=self.env.hf,
+                                 path=path)
 
     def _write_csv(self, row):
         new = self._csv_keys is None and not (

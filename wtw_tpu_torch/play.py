@@ -186,7 +186,8 @@ def main(argv=None):
     ap.add_argument("--gait-stats", action="store_true",
                     help="measure duty factor / stride freq / trot phase")
     ap.add_argument("--video", default=None,
-                    help="render a rollout video (not ported: ROADMAP 1.8)")
+                    help="render a rollout video to this path (mp4 through "
+                         "ffmpeg, else a GIF beside it; needs matplotlib)")
     ap.add_argument("--interactive", action="store_true",
                     help="drive the policy live from the keyboard (WASD "
                          "velocities, 1-4 gaits; utils/keyboard.py)")
@@ -194,9 +195,12 @@ def main(argv=None):
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
     if args.video:
-        raise NotImplementedError(
-            "--video: the renderer (wtw_tpu/utils/video.py) needs "
-            "matplotlib and is not ported (ROADMAP 1.8)")
+        # fail before the rollout, not after it
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError as e:
+            raise SystemExit(f"--video renders with matplotlib, which does "
+                             f"not import here: {e}") from None
     from .learn.eval_metrics import evaluate_policy, gait_stats
 
     env, policy, cfg, _ = build(args.checkpoint, args.num_envs, args.sweep,
@@ -217,6 +221,12 @@ def main(argv=None):
     if args.gait_stats:
         summary["gait"] = gait_stats(env, policy, steps=args.steps,
                                      seed=args.seed, commands=commands)
+    if args.video:
+        from .utils.video import record_rollout, render_trajectory
+        traj = record_rollout(env, policy, steps=min(args.steps, 250),
+                              seed=args.seed, commands=commands)
+        summary["video"] = render_trajectory(traj, env.model, hf=env.hf,
+                                             path=args.video)
     print(json.dumps(summary, indent=1))
     return summary
 

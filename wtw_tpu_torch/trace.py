@@ -3,6 +3,7 @@
     python -m wtw_tpu_torch.trace [--task go1_flat|...|b1_mob|parkour|terrain|multi|vision]
                                   [--algo ppo|ppo_plus|ppornn|ppo_cse|rma]
                                   [--num-envs N] [--iterations 2]
+                                  [--set K=V ...]
 
 Builds the task at full width (a preset of `train.build`, such as go1_flat,
 go1_mob or b1_mob, with the PPO learner or `--algo rma`; or through
@@ -27,7 +28,9 @@ profiler ranges of `physics/batched.py`; with `vision` also the device
 time of the depth march's ground lookups, its `depth_march_ground`
 ranges), and the device's busy share of
 the iteration's wall time (one stream, so kernel times do not overlap).
-Prints one JSON line per result. Needs a CUDA device.
+`--set` takes the training CLIs' overrides (e.g. `--set
+ac.compute_dtype=bfloat16` with a preset, for a bf16 iteration). Prints
+one JSON line per result. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -70,7 +73,8 @@ def _group(name: str) -> str:
         return "kernel A (fk)"
     if "wtw_dynamics" in n:
         return "kernel B (dynamics)"
-    if "gemm" in n or "cutlass" in n or "sm90_" in n or "xmma" in n:
+    if ("gemm" in n or "cutlass" in n or "sm90_" in n or "xmma" in n
+            or "nvjet" in n):
         return "matrix products"
     if "gather" in n:
         return "gathers"
@@ -118,9 +122,14 @@ def main(argv=None):
     ap.add_argument("--num-envs", type=int, default=None)
     ap.add_argument("--iterations", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--set", action="append", default=[], metavar="K=V",
+                    help="an override of the training CLI, e.g. --set "
+                         "ac.compute_dtype=bfloat16")
     args = ap.parse_args(argv)
     parkour = args.task in ("parkour", "terrain")
     algo = args.algo or ("ppo" if parkour else "ppo_cse")
+    if args.task in ("vision", "multi") and args.set:
+        ap.error(f"--task {args.task} takes no --set")
     if args.task == "vision":
         if args.algo:
             ap.error("--task vision takes no --algo (DDPG with demos)")
@@ -140,7 +149,7 @@ def main(argv=None):
         world, obs = runner.world, runner.obs_dict
     elif parkour:
         from .train_parkour import build as build_parkour
-        runner = build_parkour(args.num_envs or 4096, device="cuda",
+        runner = build_parkour(args.num_envs or 4096, args.set, device="cuda",
                                seed=args.seed, run_dir=tempfile.mkdtemp(),
                                save_interval=0, task=args.task, algo=algo)
         env, learner = runner.env, runner.learner
@@ -148,7 +157,8 @@ def main(argv=None):
     else:
         from .train import build
         n = args.num_envs or (None if args.task.endswith("_mob") else 4096)
-        env, runner = build(args.task, n, device="cuda", seed=args.seed,
+        env, runner = build(args.task, n, args.set, device="cuda",
+                            seed=args.seed,
                             run_dir=tempfile.mkdtemp(), save_interval=0,
                             algo=algo)
         learner = runner.learner if algo == "rma" else runner.ppo
@@ -195,7 +205,7 @@ def main(argv=None):
     busy_s = sum(us for us, _, _ in by_name) / 1e6
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"device": name, "task": args.task, "algo": algo,
-                      "num_envs": env.num_envs,
+                      "overrides": args.set, "num_envs": env.num_envs,
                       "rollout_s": [r for r, _ in split],
                       "update_s": [u for _, u in split]}))
     print(json.dumps({"profiled_wall_s": wall, "device_busy_s": busy_s,

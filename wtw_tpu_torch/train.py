@@ -51,9 +51,12 @@ def build(preset: str, num_envs=None, overrides=(), device=None, seed=0,
 
     dev = resolve_device(device)
     if dev.type == "cuda":
-        # true fp32 everywhere: TF32 is below the engine's precision
+        # true fp32 everywhere: TF32 is below the engine's precision; and
+        # bf16 products (ac.compute_dtype) accumulate in fp32
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     cfg = C.PRESETS[preset]()
     if num_envs:
         cfg = dataclasses.replace(
