@@ -1,0 +1,97 @@
+"""Constraints-as-Terminations (CaT) (port of `wtw_tpu/envs/constraints.py`;
+reference utils/constraint_manager.py:3-121).
+
+- each constraint is an (N, w) violation array (w columns, e.g. one per
+  joint); per COLUMN a Polyak running max of the batch-max violation
+  (tau = 0.95, :52-54);
+- termination probability per element: 0 where no violation, else
+  min_p + clip(violation / running_max, 0, 1) * (max_p - min_p) (:63-70);
+- per-env probability = max over all constraints' columns (:73-77).
+
+Constraints are declared once (names and widths); the state is one flat
+(total_cols,) running-max vector. Under env sharding (`group`) the batch
+max is the group's max and the violation fractions are group means (the
+shards hold equal env counts), so every rank updates the running max
+alike.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from ..parallel.mesh import all_max, all_mean
+
+
+@dataclasses.dataclass
+class CaTState:
+    running_max: torch.Tensor    # (total_cols,)
+
+
+class CaTManager:
+    """Static declaration of the constraint battery."""
+
+    def __init__(self, names_widths: Sequence[Tuple[str, int]],
+                 tau: float = 0.95, min_p: float = 0.0, device="cpu",
+                 group=None):
+        self.names = [n for n, _ in names_widths]
+        self.widths = [w for _, w in names_widths]
+        self.offsets = {}
+        off = 0
+        for n, w in names_widths:
+            self.offsets[n] = (off, off + w)
+            off += w
+        self.total = off
+        self.tau = tau
+        self.min_p = min_p
+        self.group = group
+        # column -> constraint one-hot, for the per-constraint violation
+        # fractions in one product
+        block = torch.zeros(self.total, len(self.names))
+        for k, n in enumerate(self.names):
+            a, b = self.offsets[n]
+            block[a:b, k] = 1.0
+        self._block = block.to(device)
+        self.device = torch.device(device)
+
+    def init_state(self) -> CaTState:
+        return CaTState(running_max=torch.full((self.total,), 1e-6,
+                                               device=self.device))
+
+    def step(self, state: CaTState, constraints: Dict[str, torch.Tensor],
+             max_ps: Dict[str, float]):
+        """One step: -> (new state, probs (N,), violation fraction per
+        constraint {name: ()}, binding column per env (N,)).
+
+        constraints[name]: (N,) or (N, w) violation values (> 0 = violated).
+        max_ps[name]: the constraint's max termination probability."""
+        if set(constraints) != set(self.names):
+            raise KeyError(f"declared {self.names}, got {list(constraints)}")
+        allc = torch.cat([constraints[n].reshape(
+            constraints[n].shape[0], -1).float() for n in self.names], dim=1)
+        dev = allc.device
+        batch_max = all_max(torch.clamp(allc.max(dim=0).values, min=1e-6),
+                            self.group)
+        new_rm = self.tau * state.running_max + (1 - self.tau) * batch_max
+        maxp = torch.tensor([float(max_ps[n]) for n, w in
+                             zip(self.names, self.widths) for _ in range(w)],
+                            device=dev)
+        scaled = torch.clamp(allc / new_rm[None, :], 0.0, 1.0)
+        probs = torch.where(allc > 0.0,
+                            self.min_p + scaled * (maxp - self.min_p)[None, :],
+                            torch.zeros_like(allc))
+        env_prob, env_argmax_col = probs.max(dim=1)
+        # fraction of envs with any violated column, per constraint
+        # (ConstraintManager.log_all / get_vals :104-121)
+        hit = ((probs > 0.0).float() @ self._block) > 0.0
+        frac = all_mean(hit.float().mean(dim=0), self.group)
+        viol = dict(zip(self.names, frac.unbind()))
+        return CaTState(running_max=new_rm), env_prob, viol, env_argmax_col
+
+
+def sqrt_func(x: torch.Tensor) -> torch.Tensor:
+    """The reference wraps many constraints in `sqrt_func`, which is a
+    pass-through (`return x`, go2_parkour.py:17-19; the sqrt variant is
+    commented out). Kept as a named hook for parity."""
+    return x
