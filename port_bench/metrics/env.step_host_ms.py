@@ -1,0 +1,17 @@
+"""Host ms of the env steps in one iteration: the inclusive time of the
+port's `env.step` spans (24 a rollout) in an iteration's record
+(`wtw_tpu_torch.utils.spans`), median over the whole iterations of the
+first half of the traced run's window, which run as the timed path does."""
+import statistics
+
+
+def read(rec):
+    try:
+        from wtw_tpu_torch.utils import spans
+    except ImportError:             # a program without spans
+        return None
+    k = rec["cell"]["check_iterations"]
+    vals = [r["spans"]["env.step"]["ns"] for r in spans.records()
+            if k <= r["index"] < k + rec["whole_iterations"]
+            and not r["profiled"] and "env.step" in r["spans"]]
+    return statistics.median(vals) / 1e6 if vals else None

@@ -22,6 +22,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from ..parallel.mesh import all_max, all_mean
+from ..utils import spans
 
 
 @dataclasses.dataclass
@@ -74,9 +75,9 @@ class CaTManager:
         batch_max = all_max(torch.clamp(allc.max(dim=0).values, min=1e-6),
                             self.group)
         new_rm = self.tau * state.running_max + (1 - self.tau) * batch_max
-        maxp = torch.tensor([float(max_ps[n]) for n, w in
+        maxp = spans.tensor([float(max_ps[n]) for n, w in
                              zip(self.names, self.widths) for _ in range(w)],
-                            device=dev)
+                            dev)
         scaled = torch.clamp(allc / new_rm[None, :], 0.0, 1.0)
         probs = torch.where(allc > 0.0,
                             self.min_p + scaled * (maxp - self.min_p)[None, :],

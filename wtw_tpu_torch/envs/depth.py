@@ -27,11 +27,12 @@ import torch
 
 from ..physics import kernels
 from ..physics.heightfield import HeightField, bilinear, corner_heights
+from ..utils import spans
 from ..utils.quat import quat_rotate
 
 
-# the profiler range around the march's ground lookups (`trace.py --task
-# vision` reads its device time)
+# the span around the march's ground lookups (`trace.py --task vision`
+# reads its device time from its profiler ranges)
 MARCH_RANGE = "depth_march_ground"
 
 
@@ -97,7 +98,7 @@ def make_depth_fn(hf: HeightField, cfg: DepthCameraCfg = DepthCameraCfg(),
         d_world = quat_rotate(base_quat[:, None, :], dirs_cam[None])  # (N, P, 3)
         # sample points (N, P, S), one coordinate at a time
         at = lambda c: origin[:, c, None, None] + d_world[..., c, None] * ts
-        with torch.profiler.record_function(MARCH_RANGE):
+        with spans.span(MARCH_RANGE):
             ground = bilinear(*corner_heights(hf, at(0), at(1)))
         # the first marched sample below the terrain (argmax of an integer
         # tensor returns the first maximal index); clip_max when none

@@ -48,6 +48,7 @@ from ..physics import (EngineParams, HeightField, PhysicsState,
                        flat_heightfield, physics_step_batched)
 from ..physics.heightfield import height_min3
 from ..utils import quat as quat_util
+from ..utils import spans
 from . import curriculum as curr
 from . import gait, observations
 from .rewards import REWARD_FNS, RewardCtx, active_reward_terms
@@ -392,7 +393,7 @@ class LeggedEnv:
             [xy, torch.zeros(N, 1, device=dev)], dim=-1)
         yaw = self._uniform(gen, (N,), -t.yaw_init_range, t.yaw_init_range)
         quat = quat_util.quat_from_angle_axis(
-            yaw, torch.tensor([0.0, 0.0, 1.0], device=dev))
+            yaw, spans.tensor([0.0, 0.0, 1.0], dev))
         vel6 = self._uniform(gen, (N, 6), -0.5, 0.5)
         return PhysicsState(base_pos=pos, base_quat=quat,
                             base_lin_vel=vel6[:, :3], base_ang_vel=vel6[:, 3:],
@@ -408,7 +409,8 @@ class LeggedEnv:
         N, dev = self.num_envs, self.device
         weights = world.curriculum_weights
         if cfg.commands.command_curriculum and self.curr_metric_idx:
-            metrics = env.command_sums[:, list(self.curr_metric_idx)]
+            metrics = env.command_sums[:, spans.tensor(
+                list(self.curr_metric_idx), dev)]
             rates = metrics / self.ep_len_for_curriculum
             success = torch.all(rates > self.curr_thresholds[None, :], dim=-1)
             weights = curr.update_weights(self.grid, weights,
@@ -442,6 +444,7 @@ class LeggedEnv:
     # ------------------------------------------------------------------
     # torque model (legged_robot.py:907-946)
     # ------------------------------------------------------------------
+    @spans.spanned("env.torques")
     def _compute_torques(self, s: EnvState, actions_scaled: torch.Tensor):
         """One substep's torques: (torques, lag buffer, joint_pos_target,
         actuator-net history updates)."""
@@ -485,6 +488,7 @@ class LeggedEnv:
     # ------------------------------------------------------------------
     # the step
     # ------------------------------------------------------------------
+    @spans.spanned("env.step")
     def step(self, world: WorldState, actions: torch.Tensor):
         """actions (N, nj) -> (world', obs_dict, rew (N,), done (N,), info)."""
         cfg, dev = self.cfg, self.device
@@ -512,6 +516,7 @@ class LeggedEnv:
         world = dataclasses.replace(world, env=env, common_step=common_step)
 
         # ---- body-frame quantities (legged_robot.py:106-115) ----
+        spans.phase("env.reward")
         phys = env.phys
         base_lin_vel = quat_util.quat_rotate_inverse(phys.base_quat,
                                                      phys.base_lin_vel)
@@ -679,10 +684,12 @@ class LeggedEnv:
         ep_at_reset_ev = _where(reset_ev, episode_sums, no_sums)
 
         # ---- masked reset (reset_idx, legged_robot.py:150-239) ----
+        spans.phase("env.reset")
         world = self._reset_envs(world, reset)
         env = world.env
 
         # ---- observations after reset (compute_observations at :124) ----
+        spans.phase("env.observe")
         obs, priv_obs = self.observe(world, grav_off)
         # history ring (history_wrapper.py:18-24; not zeroed on resets)
         obs_history = torch.cat([world.obs_history[:, self.num_obs:], obs],
@@ -788,8 +795,8 @@ class LeggedEnv:
         (N, P, 3) world points."""
         t, dev = self.cfg.terrain, self.device
         gx, gy = torch.meshgrid(
-            torch.tensor(t.measured_points_x, dtype=torch.float32, device=dev),
-            torch.tensor(t.measured_points_y, dtype=torch.float32, device=dev),
+            spans.tensor(t.measured_points_x, dev, torch.float32),
+            spans.tensor(t.measured_points_y, dev, torch.float32),
             indexing="ij")
         pts = torch.stack([gx.reshape(-1), gy.reshape(-1),
                            torch.zeros(gx.numel(), device=dev)], -1)

@@ -7,6 +7,7 @@ import numpy as np
 import torch
 
 from ..config import Cfg
+from ..utils import spans
 
 
 def commands_scale(cfg: Cfg) -> np.ndarray:
@@ -28,7 +29,7 @@ def build_obs(cfg: Cfg, *, projected_gravity, commands, joint_q, joint_qd,
     s = cfg.obs_scales
     blocks = [projected_gravity]
     if cfg.env.observe_command:
-        blocks.append(commands * torch.as_tensor(
+        blocks.append(commands * spans.as_tensor(
             commands_scale(cfg), dtype=torch.float32, device=commands.device))
     blocks.append((joint_q - default_joint_q) * s.dof_pos)
     blocks.append(joint_qd * s.dof_vel)

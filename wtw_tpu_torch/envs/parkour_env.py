@@ -50,6 +50,7 @@ from ..terrain import (ParkourTerrainCfg, assign_env_origins,
                        assign_parkour_origins, build_parkour, build_terrain,
                        ceiling_heightfield, to_heightfield)
 from ..utils import quat as quat_util
+from ..utils import spans
 from . import gait
 from .constraints import CaTManager, CaTState, sqrt_func
 
@@ -302,7 +303,7 @@ _HARD_P = ("knee_contact", "base_contact", "foot_contact", "upsidedown",
 def _where(mask: torch.Tensor, a, b):
     """Masked select with the (N,) mask broadcast over trailing dims."""
     if not torch.is_tensor(a):
-        a = torch.as_tensor(a, dtype=b.dtype, device=b.device)
+        a = spans.as_tensor(a, dtype=b.dtype, device=b.device)
     return torch.where(mask.reshape(mask.shape + (1,) * (b.dim() - 1)), a, b)
 
 
@@ -577,8 +578,8 @@ class ParkourEnv:
         wz = 0 at resample (flipped stochastically later); deadzone."""
         cfg, dev = self.cfg, self.device
         if cfg.only_forwards:
-            return torch.tensor([cfg.only_forwards_velocity, 0.0, 0.0],
-                                device=dev).expand(N, 3).clone()
+            return spans.tensor([cfg.only_forwards_velocity, 0.0, 0.0],
+                                dev).expand(N, 3).clone()
         vx = self._uniform(gen, (N,), *cfg.lin_vel_x)
         vy = self._uniform(gen, (N,), *cfg.lin_vel_y)
         cmd = torch.stack([vx, vy, torch.zeros_like(vx)], dim=-1)
@@ -614,6 +615,7 @@ class ParkourEnv:
         cell = self.terrain_ceilings[env.terrain_level, env.terrain_type]
         return crawl * cell + (1.0 - crawl) * 0.4
 
+    @spans.spanned("env.torques")
     def _compute_tau(self, s: ParkourEnvState, actions, hist=None):
         """PD or the actuator net, the clip, then motor friction
         (:1218-1265) -> tau. With the actuator net, the history fields to
@@ -649,6 +651,7 @@ class ParkourEnv:
             res[1:]
 
     # ------------------------------------------------------------------
+    @spans.spanned("env.step")
     def step(self, world: ParkourWorld, actions: torch.Tensor):
         cfg, model = self.cfg, self.model
         N = actions.shape[0]
@@ -671,6 +674,7 @@ class ParkourEnv:
 
         phys = env.phys
         # ---- divergence guard (see ParkourCfg.divergence_*) ----
+        spans.phase("env.reward")
         finite_state = torch.ones(N, dtype=torch.bool, device=dev)
         for f in ("base_pos", "base_quat", "base_lin_vel", "base_ang_vel",
                   "joint_q", "joint_qd"):
@@ -684,7 +688,7 @@ class ParkourEnv:
                                                      phys.base_lin_vel)
         base_ang_vel = quat_util.quat_rotate_inverse(phys.base_quat,
                                                      phys.base_ang_vel)
-        g_unit = torch.tensor([0.0, 0.0, -1.0], device=dev).expand(N, 3)
+        g_unit = spans.tensor([0.0, 0.0, -1.0], dev).expand(N, 3)
         projected_gravity = quat_util.quat_rotate_inverse(phys.base_quat,
                                                           g_unit)
 
@@ -879,12 +883,14 @@ class ParkourEnv:
             0, env.terrain_type, hard_f)
 
         # ---- masked reset (reset_idx :1035-1124) ----
+        spans.phase("env.reset")
         env = self._reset_envs(env, hard_done, gen)
 
         # ---- stochastic command updates (:1362-1402) ----
         env = self._update_commands(env, gen)
 
         # ---- observations of the post-reset state ----
+        spans.phase("env.observe")
         obs_sample = self._observe(env, gen)
         # refresh history for just-reset envs (compute_observations
         # :601-605; the first step after a global reset too)
@@ -977,13 +983,13 @@ class ParkourEnv:
         feet_body = quat_util.quat_rotate(inv_yaw[:, None].expand(N, 4, 4),
                                           rel)
         dev = self.device
-        ys_nom = torch.tensor([0.125, -0.125, 0.125, -0.125], device=dev)
-        xs_nom = torch.tensor([0.225, 0.225, -0.225, -0.225], device=dev)
+        ys_nom = spans.tensor([0.125, -0.125, 0.125, -0.125], dev)
+        xs_nom = spans.tensor([0.225, 0.225, -0.225, -0.225], dev)
         phases = (1.0 - env.foot_indices * 2.0).abs() - 0.5      # (N, 4)
         freq = 3.0
         x_vel = env.commands[:, 0:1]
         y_vel = env.commands[:, 2:3] * 0.45 / 2
-        side = torch.tensor([1.0, 1.0, -1.0, -1.0], device=dev)
+        side = spans.tensor([1.0, 1.0, -1.0, -1.0], dev)
         ys_off = phases * y_vel * (0.5 / freq) * side
         xs_off = phases * x_vel * (0.5 / freq)
         des_x = xs_nom[None, :] + xs_off
@@ -1097,8 +1103,7 @@ class ParkourEnv:
         :576-620, heights and ceilings re-read after the reset)."""
         phys = env.phys
         N = phys.base_pos.shape[0]
-        g_unit = torch.tensor([0.0, 0.0, -1.0],
-                              device=self.device).expand(N, 3)
+        g_unit = spans.tensor([0.0, 0.0, -1.0], self.device).expand(N, 3)
         rot_inv = lambda v: quat_util.quat_rotate_inverse(phys.base_quat, v)
         return self._build_obs(
             env, rot_inv(phys.base_lin_vel), rot_inv(phys.base_ang_vel),
@@ -1117,8 +1122,8 @@ class ParkourEnv:
             blocks.append(base_ang_vel * cfg.ang_vel_scale)
         if cfg.observe_commands:
             rc = self._robot_command(phys.base_quat, env.commands)
-            scale = torch.tensor([cfg.lin_vel_scale, cfg.lin_vel_scale,
-                                  cfg.ang_vel_scale], device=self.device)
+            scale = spans.tensor([cfg.lin_vel_scale, cfg.lin_vel_scale,
+                                  cfg.ang_vel_scale], self.device)
             blocks.append(rc * scale)
         if cfg.observe_misc:
             blocks += [projected_gravity, phys.joint_q * cfg.dof_pos_scale,
@@ -1130,7 +1135,7 @@ class ParkourEnv:
         if cfg.observe_ceilings:
             blocks.append(ceilings[:, None])
         if cfg.observe_phases:
-            off = torch.tensor([0.0, np.pi, np.pi, 0.0], device=self.device)
+            off = spans.tensor([0.0, np.pi, np.pi, 0.0], self.device)
             ph = (2 * np.pi * cfg.phases_freq
                   * env.progress[:, None].float() * self.dt + off)
             blocks += [torch.cos(ph), torch.sin(ph)]

@@ -12,6 +12,7 @@ import dataclasses
 import torch
 
 from ..utils import quat as quat_util
+from ..utils import spans
 
 
 @dataclasses.dataclass
@@ -183,13 +184,13 @@ def feet_air_time(ctx, cfg):
 def orientation_control(ctx, cfg):
     roll_cmd, pitch_cmd = _cmd(ctx, 11), _cmd(ctx, 10)
     dev = roll_cmd.device
-    ex = torch.tensor([1.0, 0.0, 0.0], device=dev)
-    ey = torch.tensor([0.0, 1.0, 0.0], device=dev)
+    ex = spans.tensor([1.0, 0.0, 0.0], dev)
+    ey = spans.tensor([0.0, 1.0, 0.0], dev)
     quat_roll = quat_util.quat_from_angle_axis(-roll_cmd, ex)
     quat_pitch = quat_util.quat_from_angle_axis(-pitch_cmd, ey)
     desired_quat = quat_util.quat_mul(quat_roll, quat_pitch)
     desired_pg = quat_util.quat_rotate_inverse(
-        desired_quat, torch.tensor([0.0, 0.0, -1.0], device=dev))
+        desired_quat, spans.tensor([0.0, 0.0, -1.0], dev))
     return torch.sum(torch.square(ctx.projected_gravity[:, :2]
                                   - desired_pg[:, :2]), -1)
 
@@ -212,7 +213,7 @@ def raibert_heuristic(ctx, cfg):
     freq = c[:, 4] if n > 4 else full(3.0)
     y_vel_des = c[:, 2] * l / 2
     ys_off = phases * (y_vel_des * (0.5 / freq))[:, None]
-    ys_off = ys_off * torch.tensor([1.0, 1.0, -1.0, -1.0], device=c.device)
+    ys_off = ys_off * spans.tensor([1.0, 1.0, -1.0, -1.0], c.device)
     xs_off = phases * (c[:, 0] * (0.5 / freq))[:, None]
     err = torch.stack([xs_nom + xs_off, ys_nom + ys_off], -1) - feet_body[..., :2]
     return torch.sum(torch.square(torch.abs(err)), dim=(-1, -2))

@@ -39,6 +39,7 @@ from torch import nn
 
 from ..parallel.mesh import (all_mean, all_mean_grads_, all_sum, draw_rows,
                              invariant_blocks, invariant_grads, invariant_sum)
+from ..utils import spans
 from .ppo_cse import clip_by_global_norm_
 
 
@@ -158,6 +159,7 @@ class CatAgent(nn.Module):
                 + 0.5 * math.log(2 * math.pi * math.e)).sum()
 
 
+@spans.spanned("learner.gae")
 def cat_gae(rewards, dones, true_dones, values, next_value, next_done,
             next_true_done, gamma: float, lam: float):
     """Float-done GAE (algos/PPO.py:244-263), (T, N) inputs: rewards *=
@@ -311,6 +313,7 @@ class CatPPO:
             eps = draw(mean.shape)
         return mean + torch.exp(self.agent.actor_logstd) * eps
 
+    @spans.spanned("learner.act")
     def act(self, t: int, obs_norm, noise=None):
         """The rollout's step-t policy: sampled actions, their log-prob and
         the value."""
@@ -320,6 +323,7 @@ class CatPPO:
         return (actions, agent.log_prob(mean, actions),
                 self.per_block(agent.value, obs_norm))
 
+    @spans.spanned("learner.rollout", opens_record=True)
     @torch.no_grad()
     def rollout(self, world, obs_norm, noise: Optional[torch.Tensor] = None,
                 **draws):
@@ -389,11 +393,13 @@ class CatPPO:
         """Backward of `out[0]`, clip, Adam step (and the std floor); ->
         the detached row of `out`."""
         self.opt.zero_grad(set_to_none=True)
-        out[0].backward()
+        with spans.span("learner.backward"):
+            out[0].backward()
         all_mean_grads_(list(self.agent.parameters()), self.group)
         self.step()
         return torch.stack([x.detach() for x in out])
 
+    @spans.spanned("learner.optimizer")
     def step(self):
         """Clip the gradients' global norm, the Adam step, the std
         floor."""
@@ -414,6 +420,7 @@ class CatPPO:
         stats["lr"] = lr
         return stats
 
+    @spans.spanned("learner.update")
     def update(self, traj: CatRollout, next_obs_norm,
                perms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """CaT GAE, value normalization and `update_epochs` x
@@ -448,9 +455,10 @@ class CatPPO:
             perm = (perms[ep] if perms is not None else torch.randperm(
                 T * N, generator=self.gen, device=b_obs.device))
             for idx in perm[:mb * M].reshape(M, mb):
-                batch = (b_obs[idx], b_act[idx], b_logp[idx], b_adv[idx],
-                         b_ret_n[idx], b_val_n[idx])
-                rows.append(self.optimize(self.loss(batch, value_rms)))
+                with spans.span("learner.minibatch"):
+                    batch = (b_obs[idx], b_act[idx], b_logp[idx], b_adv[idx],
+                             b_ret_n[idx], b_val_n[idx])
+                    rows.append(self.optimize(self.loss(batch, value_rms)))
         return self.stats(rows, lr)
 
     def _invariant_update(self, traj: CatRollout, next_obs_norm):
@@ -500,6 +508,7 @@ class CatPPO:
                      for i in range(len(blocks))], value_rms, cnt, params))
         return self.stats(out, lr)
 
+    @spans.spanned("learner.minibatch")
     def _invariant_step(self, batches, value_rms, cnt, params):
         """One minibatch of `_invariant_update`; -> (loss, pg, v)."""
         args, agent, g = self.args, self.agent, self.group

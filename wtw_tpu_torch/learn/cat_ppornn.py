@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import all_mean
+from ..utils import spans
 from .cat_ppo import (CatAgent, CatPPO, CatPPOArgs, CatRollout, cat_gae,
                       clipped_terms, rms_norm, rms_update)
 
@@ -101,6 +102,7 @@ class CatPPORNN(CatPPO):
         super().load_state(blob)
         self.ac_hidden, self.cr_hidden = blob["ac_hidden"], blob["cr_hidden"]
 
+    @spans.spanned("learner.rollout", opens_record=True)
     @torch.no_grad()
     def rollout(self, world, obs_norm, noise: Optional[torch.Tensor] = None):
         """`num_steps` env steps carrying both hiddens, zeroed after a hard
@@ -112,9 +114,10 @@ class CatPPORNN(CatPPO):
         ac_h, cr_h = ac_h0, cr_h0
         steps = []
         for t in range(self.args.num_steps):
-            mean, value, ac_h, cr_h = agent(obs_norm, ac_h, cr_h)
-            actions = self.sample(t, mean, noise)
-            logp = agent.log_prob(mean, actions)
+            with spans.span("learner.act"):
+                mean, value, ac_h, cr_h = agent(obs_norm, ac_h, cr_h)
+                actions = self.sample(t, mean, noise)
+                logp = agent.log_prob(mean, actions)
             world, next_obs, rew, done_prob, info = env.step(world, actions)
             steps.append((obs_norm, actions, logp, rew, done, true_done,
                           value))
@@ -129,6 +132,7 @@ class CatPPORNN(CatPPO):
         return world, obs_norm, traj, {"mean_step_reward": all_mean(
             traj.rewards.mean(), self.group)}
 
+    @spans.spanned("learner.replay")
     def replay(self, obs, ac_h, cr_h, true_dones):
         """Both GRUs over (T, B, obs) from the given hiddens, zeroing them
         after step t with `true_dones[t]` (the flags carried into each
@@ -157,6 +161,7 @@ class CatPPORNN(CatPPO):
         loss = pg_loss - args.ent_coef * agent.entropy() + args.vf_coef * v_loss
         return loss, pg_loss, v_loss
 
+    @spans.spanned("learner.update")
     def update(self, traj: RNNRollout, next_obs_norm,
                perms: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """CaT GAE bootstrapped through one more GRU step, value
@@ -186,11 +191,12 @@ class CatPPORNN(CatPPO):
                 N, generator=self.gen, device=advs.device))
             for idx in perm[:mb * args.num_minibatches].reshape(
                     args.num_minibatches, mb):
-                batch = (traj.obs[:, idx], traj.actions[:, idx],
-                         traj.logp[:, idx], advs[:, idx], ret_n[:, idx],
-                         val_n[:, idx], traj.ac_h0[idx], traj.cr_h0[idx],
-                         traj.true_dones[:, idx])
-                rows.append(self.optimize(self.loss(batch, value_rms)))
+                with spans.span("learner.minibatch"):
+                    batch = (traj.obs[:, idx], traj.actions[:, idx],
+                             traj.logp[:, idx], advs[:, idx], ret_n[:, idx],
+                             val_n[:, idx], traj.ac_h0[idx], traj.cr_h0[idx],
+                             traj.true_dones[:, idx])
+                    rows.append(self.optimize(self.loss(batch, value_rms)))
         return self.stats(rows, lr)
 
     def train_iteration(self, world, obs_norm, noise=None, perms=None):

@@ -34,6 +34,7 @@ import torch
 from ..models import actor_critic as ac
 from ..parallel.mesh import (all_mean, all_mean_grads_, all_sum, draw_rows,
                              invariant_blocks, invariant_grads, invariant_sum)
+from ..utils import spans
 
 
 @dataclass(frozen=True)
@@ -86,6 +87,7 @@ class Rollout:
     mu: torch.Tensor
 
 
+@spans.spanned("learner.gae")
 def compute_gae(rewards, dones, values, last_values, gamma, lam,
                 group=None, blocks=None):
     """rollout_storage.py:76-90; rewards/dones/values (T, N) -> normalized
@@ -179,6 +181,7 @@ class PPO:
                                          device=mean.device)
         return draw_rows(draw, mean.shape, self.group)
 
+    @spans.spanned("learner.rollout", opens_record=True)
     @torch.no_grad()
     def rollout(self, world, obs_dict, noise: Optional[torch.Tensor] = None):
         """`num_steps_per_env` env steps; `noise` (T, N, A) replaces the
@@ -191,32 +194,35 @@ class PPO:
         for t in range(T):
             obs_h = obs_dict["obs_history"]
             priv = obs_dict["privileged_obs"]
-            if args.sharding_invariant:
-                blocks = invariant_blocks(obs_h.shape[0], self.group)
-                mean = torch.cat([model.distribution(obs_h[b])[0]
-                                  for b in blocks])
-                std = model.std.expand_as(mean)
-            else:
-                mean, std = model.distribution(obs_h)
-            if noise is not None:
-                actions = mean + std * noise[t]
-            elif args.sharding_invariant:
-                actions = mean + std * self._action_noise(mean)
-            else:
-                actions = ac.sample_actions(mean, std, self.gen)
-            logp = ac.log_prob(mean, std, actions)
-            values = (torch.cat([model.evaluate(obs_h[b], priv[b])
-                                 for b in blocks])
-                      if args.sharding_invariant
-                      else model.evaluate(obs_h, priv))
-            # train/eval split (ppo_cse/__init__.py:136-146): the trailing
-            # eval envs act with the sampled student, or with the teacher
-            # under eval_expert; only the train envs enter the batch
-            exec_actions = actions
-            if args.eval_expert and n_tr < actions.shape[0]:
-                t_mean = model.actor_mean(obs_h[n_tr:], priv[n_tr:])
-                exec_actions = torch.cat([actions[:n_tr], ac.sample_actions(
-                    t_mean, std[n_tr:], self.gen)])
+            with spans.span("learner.act"):
+                if args.sharding_invariant:
+                    blocks = invariant_blocks(obs_h.shape[0], self.group)
+                    mean = torch.cat([model.distribution(obs_h[b])[0]
+                                      for b in blocks])
+                    std = model.std.expand_as(mean)
+                else:
+                    mean, std = model.distribution(obs_h)
+                if noise is not None:
+                    actions = mean + std * noise[t]
+                elif args.sharding_invariant:
+                    actions = mean + std * self._action_noise(mean)
+                else:
+                    actions = ac.sample_actions(mean, std, self.gen)
+                logp = ac.log_prob(mean, std, actions)
+                values = (torch.cat([model.evaluate(obs_h[b], priv[b])
+                                     for b in blocks])
+                          if args.sharding_invariant
+                          else model.evaluate(obs_h, priv))
+                # train/eval split (ppo_cse/__init__.py:136-146): the
+                # trailing eval envs act with the sampled student, or with
+                # the teacher under eval_expert; only the train envs enter
+                # the batch
+                exec_actions = actions
+                if args.eval_expert and n_tr < actions.shape[0]:
+                    t_mean = model.actor_mean(obs_h[n_tr:], priv[n_tr:])
+                    exec_actions = torch.cat([
+                        actions[:n_tr],
+                        ac.sample_actions(t_mean, std[n_tr:], self.gen)])
             world, next_obs, rew, done, info = env.step(world, exec_actions)
             # timeout bootstrapping (ppo.py:84-86)
             rew_b = rew + args.gamma * values * info["time_outs"]
@@ -311,6 +317,7 @@ class PPO:
                 if n_train < B else train)
         return train, test
 
+    @spans.spanned("learner.minibatch")
     def minibatch_step(self, batch) -> Tuple[torch.Tensor, ...]:
         """One PPO step then the adaptation substep(s) on one minibatch."""
         args, model, g = self.args, self.ac, self.group
@@ -337,7 +344,7 @@ class PPO:
         kl = all_mean(kl, g)
         # adaptive-KL learning rate (ppo.py:126-132), set before the step
         if args.desired_kl is not None and args.schedule == "adaptive":
-            k = float(kl)
+            k = spans.host_float(kl)
             if k > args.desired_kl * 2.0:
                 self.lr = max(1e-5, self.lr / 1.5)
             elif 0.0 < k < args.desired_kl / 2.0:
@@ -370,6 +377,7 @@ class PPO:
                 sum(l for l, _ in a_losses) / n,
                 sum(t for _, t in a_losses) / n)
 
+    @spans.spanned("learner.update")
     def update(self, traj: Rollout, last_obs_dict,
                perm: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """GAE + num_learning_epochs x num_mini_batches minibatch steps over
@@ -473,6 +481,7 @@ class PPO:
         stats["lr"] = self.lr
         return stats
 
+    @spans.spanned("learner.minibatch")
     def _invariant_step(self, batches, old_std, cnt, n_train, n_test,
                         params, ad, fused):
         """One minibatch of `_invariant_update`: the PPO step, then the
@@ -518,7 +527,7 @@ class PPO:
         grads[std_i] = grads[std_i] + g_ent
         # adaptive-KL learning rate (ppo.py:126-132), set before the step
         if args.desired_kl is not None and args.schedule == "adaptive":
-            k = float(kl)
+            k = spans.host_float(kl)
             if k > args.desired_kl * 2.0:
                 self.lr = max(1e-5, self.lr / 1.5)
             elif 0.0 < k < args.desired_kl / 2.0:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..models.robot import RobotModel
+from ..utils import spans
 from ..utils.quat import quat_mul, quat_to_matrix
 from .engine import EngineParams
 from .heightfield import HeightField, _cell_coords
@@ -311,14 +312,14 @@ def contact_groups(model: RobotModel) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-# profiler range around kernel B's corner-row gathers (`trace.py` reads
-# their device time from it)
+# span around kernel B's corner-row gathers (`trace.py` reads their device
+# time from its profiler ranges)
 GATHER_RANGE = "hf_corner_gather"
 
 
 def _gather_at(hf: HeightField, u: torch.Tensor, v: torch.Tensor):
     """Corner rows of the cells holding continuous coordinates (u, v)."""
-    with torch.profiler.record_function(GATHER_RANGE):
+    with spans.span(GATHER_RANGE):
         u0f, v0f = torch.floor(u), torch.floor(v)
         base = u0f.long() * hf.shape[1] + v0f.long()
         return u0f, v0f, hf.corners[base].permute(2, 0, 1).contiguous()
@@ -389,6 +390,7 @@ def pack_state_rows(state: PhysicsState, joint_torque) -> torch.Tensor:
                       state.joint_qd, joint_torque], dim=1).T.contiguous()
 
 
+@spans.spanned("physics.step")
 def physics_step_batched(model: RobotModel, hf: HeightField,
                          params: EngineParams, state: PhysicsState,
                          joint_torque, friction, restitution,
@@ -414,7 +416,7 @@ def physics_step_batched(model: RobotModel, hf: HeightField,
     B = state.joint_q.shape[0]
     nj = model.nj
     dev = state.joint_q.device
-    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    f32 = lambda x: spans.as_tensor(x, dtype=torch.float32, device=dev)
     bcast = lambda x, shape: (torch.zeros(shape, device=dev) if x is None
                               else f32(x).expand(shape))
 

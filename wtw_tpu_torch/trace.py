@@ -28,7 +28,11 @@ profiler ranges of `physics/batched.py`; with `vision` also the device
 time of the depth march's ground lookups, its `depth_march_ground`
 ranges), and the device's busy share of
 the iteration's wall time (one stream, so kernel times do not overlap).
-`--set` takes the training CLIs' overrides (e.g. `--set
+A last line gives the host spans of `utils/spans.py` an iteration (calls,
+inclusive and self ms, the host syncs charged to each while it was the
+innermost) and the host syncs and their blocked ms, averaged over the
+timed iterations that ran without the profiler (the profiled one where
+there is none). `--set` takes the training CLIs' overrides (e.g. `--set
 ac.compute_dtype=bfloat16` with a preset, for a bf16 iteration). Prints
 one JSON line per result. Needs a CUDA device.
 """
@@ -44,6 +48,7 @@ import torch
 from .config import PRESETS
 from .envs.depth import MARCH_RANGE
 from .physics.batched import GATHER_RANGE
+from .utils import spans
 
 
 def _device_us(evt) -> float:
@@ -223,6 +228,30 @@ def main(argv=None):
     print(json.dumps({"top_kernels": [
         {"name": key[:90], "device_ms": us / 1e3, "launches": count}
         for us, count, key in by_name[:15]]}))
+    print(json.dumps(_span_table(spans.records()[-len(split):])))
+
+
+def _span_table(recs):
+    """The spans and host syncs an iteration, averaged over the records
+    that ran without the profiler (all of them where none did)."""
+    recs = [r for r in recs if not r["profiled"]] or recs
+    n = max(len(recs), 1)
+    table = {}
+    for r in recs:
+        for name, row in r["spans"].items():
+            t = table.setdefault(name, [0, 0, 0, 0, 0])
+            for i, k in enumerate(("count", "ns", "self_ns", "syncs",
+                                   "sync_ns")):
+                t[i] += row[k]
+    return {"span_iterations": len(recs),
+            "profiled": any(r["profiled"] for r in recs),
+            "host_syncs": sum(r["counters"]["host_syncs"] for r in recs) / n,
+            "sync_wait_ms": sum(r["counters"]["sync_wait_ns"]
+                                for r in recs) / n / 1e6,
+            "spans": {k: {"calls": c / n, "ms": ns / n / 1e6,
+                          "self_ms": sf / n / 1e6, "syncs": sy / n,
+                          "sync_ms": sn / n / 1e6}
+                      for k, (c, ns, sf, sy, sn) in table.items()}}
 
 
 if __name__ == "__main__":

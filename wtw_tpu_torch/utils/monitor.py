@@ -5,7 +5,8 @@ monitor():115-143) without the external texttable dependency. The runner
 prints one every `RunnerArgs.console_table_freq` iterations.
 
 The JAX module's `profile_trace` (a jax.profiler context) has its
-counterpart in `wtw_tpu_torch.trace`; its `PhaseTimer` has no caller.
+counterpart in `wtw_tpu_torch.trace`, and its `PhaseTimer` in the host
+spans of `wtw_tpu_torch.utils.spans`.
 """
 from __future__ import annotations
 
