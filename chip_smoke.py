@@ -795,25 +795,40 @@ def phase_parkour_rollout(model, dev, substeps=100):
 
 
 class Counted:
-    """The kernels' launches inside the block: every count set to 0 on
-    entry and read on exit (`launches`), with the block's seconds. Kernel
-    B's wrapper `kernels.dynamics`, which the physics entry calls through
-    the module, is wrapped meanwhile: `dynamics_calls_with_ceiling` counts
-    the calls that pass a ceiling (`ceil_h`), and `last` keeps the last
-    call's arguments (the physics entry builds them anew for every call)."""
+    """The kernels' launches inside the block, every count set to 0 on
+    entry and read on exit, with the block's seconds: `launches`, each
+    kernel's launches on the device, made by its wrapper or by the replays
+    of a captured CUDA graph (the parkour env step); `replayed_launches`,
+    the part the replays made (replays times the launches their capture
+    made); `dynamics_launches_with_ceiling`, kernel B's launches, made or
+    replayed, that ran its ceiling pass. Kernel B's wrapper
+    `kernels.dynamics`, which the physics entry calls through the module,
+    is wrapped meanwhile: `dynamics_calls_with_ceiling` counts its calls
+    that pass a ceiling (`ceil_h`; on the CPU, where nothing launches, the
+    plain version's calls), and `last` keeps the last call's arguments
+    (the physics entry builds them anew for every call). A call inside a
+    capture keeps clones of its tensors, made by the graph, so that after
+    the block they hold the inputs of that call's last replay."""
 
     def __enter__(self):
         from wtw_tpu_torch.physics import kernels as K
         self.K, self.real = K, K.dynamics
         self.dynamics_calls_with_ceiling, self.last = 0, None
         for k in K.KERNELS:
-            k.launches = 0
+            k.launches = k.ceiling_launches = 0
+            k.replayed = k.replayed_ceiling = 0
 
-        def watched(*args, ceil_h=None, **kw):
-            if ceil_h is not None:
+        def watched(*args, **kw):
+            if kw.get("ceil_h") is not None:
                 self.dynamics_calls_with_ceiling += 1
-            self.last = (args, dict(kw, ceil_h=ceil_h))
-            return self.real(*args, ceil_h=ceil_h, **kw)
+            if (args[2].is_cuda
+                    and torch.cuda.is_current_stream_capturing()):
+                keep = lambda x: x.clone() if torch.is_tensor(x) else x
+                self.last = ([keep(a) for a in args],
+                             {n: keep(v) for n, v in kw.items()})
+            else:
+                self.last = (args, dict(kw))
+            return self.real(*args, **kw)
         K.dynamics = watched
         self.t0 = time.perf_counter()
         return self
@@ -821,7 +836,21 @@ class Counted:
     def __exit__(self, *exc):
         self.seconds = time.perf_counter() - self.t0
         self.K.dynamics = self.real
-        self.launches = {k.name: k.launches for k in self.K.KERNELS}
+        self.launches = {k.name: k.launches + k.replayed
+                         for k in self.K.KERNELS}
+        self.replayed_launches = {k.name: k.replayed for k in self.K.KERNELS}
+        self.dynamics_launches_with_ceiling = (
+            self.K.DYNAMICS.ceiling_launches
+            + self.K.DYNAMICS.replayed_ceiling)
+
+    def record(self):
+        """The counts, as a phase's record holds them."""
+        return dict(launches=self.launches,
+                    replayed_launches=self.replayed_launches,
+                    dynamics_calls_with_ceiling=(
+                        self.dynamics_calls_with_ceiling),
+                    dynamics_launches_with_ceiling=(
+                        self.dynamics_launches_with_ceiling))
 
 
 def _measure(runner_learn, dev, iterations, warmup, num_envs, num_steps,
@@ -842,8 +871,7 @@ def _measure(runner_learn, dev, iterations, warmup, num_envs, num_steps,
                 env_steps_per_s=[num_steps * num_envs / w for w in walls],
                 max_memory_allocated=(torch.cuda.max_memory_allocated(dev)
                                       if dev.type == "cuda" else None),
-                launches=c.launches,
-                dynamics_calls_with_ceiling=c.dynamics_calls_with_ceiling)
+                **c.record())
 
 
 def _finite(losses, what):
@@ -980,6 +1008,15 @@ def _check_launches(name, rec):
     if off:
         raise AssertionError(f"{name}: kernels launched other than {exp} "
                              f"times in the measured iterations: {off}")
+
+
+def _check_ceiling(name, rec):
+    """Kernel B launched in the measured iterations, and ran its ceiling
+    pass in every launch, made or replayed."""
+    n, m = rec["launches"]["dynamics"], rec["dynamics_launches_with_ceiling"]
+    if n == 0 or m != n:
+        raise AssertionError(f"{name}: kernel B ran without the ceiling ({m} "
+                             f"of its {n} launches with it)")
 
 
 def phase_preset_training(preset, device="cuda", num_envs=None, iterations=3,
@@ -1736,9 +1773,7 @@ def phase_diag_parkour(checkpoint, device="cuda", num_envs=64, steps=700,
             torch.cuda.synchronize()
     if device != "cpu":
         _expect_launches("diag_parkour", c, ran * 4)
-        if c.dynamics_calls_with_ceiling != c.launches["dynamics"]:
-            raise AssertionError("diag_parkour: kernel B ran without the "
-                                 "ceiling")
+        _check_ceiling("diag_parkour", c.record())
     total = out["first_episodes_done"] + out["still_alive"]
     attributed = sum(out["reasons"].values())
     if total != num_envs or attributed != out["first_episodes_done"] or sum(
@@ -1746,8 +1781,7 @@ def phase_diag_parkour(checkpoint, device="cuda", num_envs=64, steps=700,
         raise AssertionError(f"diag_parkour: attributions do not sum to the "
                              f"{num_envs} envs: {out}")
     return dict(terrain=terrain, level=level, num_envs=num_envs,
-                steps=steps, steps_run=ran, launches=c.launches,
-                dynamics_calls_with_ceiling=c.dynamics_calls_with_ceiling,
+                steps=steps, steps_run=ran, **c.record(),
                 build_s=build_s, seconds=c.seconds, rollout_s=c.seconds,
                 env_steps_per_s=ran * num_envs / c.seconds,
                 ms_per_policy_step=1e3 * c.seconds / ran,
@@ -1834,8 +1868,7 @@ def _vision_run(argv, device, what, fk_per_step, steps, extra_timers=()):
             torch.cuda.synchronize()
     if device != "cpu":
         _expect_fk_dyn(what, c, fk_per_step * steps, 4 * steps)
-        if c.dynamics_calls_with_ceiling != c.launches["dynamics"]:
-            raise AssertionError(f"{what}: kernel B ran without the ceiling")
+        _check_ceiling(what, c.record())
     return out, c, b, frames, timers
 
 
@@ -1851,8 +1884,7 @@ def _vision_record(c, b, frames, env, what, device, env_steps, policy_steps,
     """A vision run's counts, rates, peak memory and checks: both kernels
     on its last kernel B inputs, and kernel A on the renderer's last inputs
     where it rendered."""
-    rec = dict(launches=c.launches,
-               dynamics_calls_with_ceiling=c.dynamics_calls_with_ceiling,
+    rec = dict(**c.record(),
                **_rollout_rates(c, setup, env_steps, policy_steps),
                max_memory_allocated=(torch.cuda.max_memory_allocated()
                                      if device != "cpu" else None),
@@ -2320,8 +2352,7 @@ def _dist_run(spec, group, out_prefix=None):
                iterations=spec["iterations"], param_digests=digests,
                losses=losses, env_steps_per_s=rates,
                collective_ms_per_iteration=reduce_ms,
-               collectives_per_iteration=reduce_calls, launches=c.launches,
-               dynamics_calls_with_ceiling=c.dynamics_calls_with_ceiling,
+               collectives_per_iteration=reduce_calls, **c.record(),
                ceiling=ceiling is not None and not ceiling.is_flat,
                expected_launches_per_kernel=(
                    spec["iterations"] * steps * env.cfg.control.decimation
@@ -2481,8 +2512,12 @@ def phase_dist(task="go1_flat", device="cuda", num_envs=B, ranks=2,
         lvl = torch.cat([s["terrain_level"] for s in states])
         if not torch.equal(lvl, ref_state["terrain_level"]):
             raise AssertionError("dist parkour: terrain levels differ")
+        # kernel B's launches on a card (a graph's replay calls no
+        # wrapper), the plain version's calls on the CPU
+        key = ("dynamics_calls_with_ceiling" if device == "cpu"
+               else "dynamics_launches_with_ceiling")
         for r in recs + [ref]:
-            if r["ceiling"] and (r["dynamics_calls_with_ceiling"]
+            if r["ceiling"] and (r[key]
                                  != r["expected_launches_per_kernel"]):
                 raise AssertionError("dist parkour: kernel B ran without "
                                      "the ceiling")
@@ -2715,9 +2750,7 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
     pk = run("parkour_training", phase_parkour_training,
              checkpoint_to=ckpt["parkour"])
     _check_launches("parkour training", pk)
-    if pk["dynamics_calls_with_ceiling"] != pk["launches"]["dynamics"]:
-        raise AssertionError("parkour training: kernel B ran without the "
-                             "ceiling")
+    _check_ceiling("parkour training", pk)
 
     run("kernel_b_edges", phase_kernel_b_edges, model, dev)
     mob = run("mob_training", phase_preset_training, "go1_mob",
@@ -2732,7 +2765,7 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
         run(f"rollout_{key}", phase_robot_rollout, m, dev)
     terrain = run("terrain_training", phase_parkour_training, task="terrain")
     _check_launches("terrain training", terrain)
-    if terrain["dynamics_calls_with_ceiling"] or terrain["has_ceiling"]:
+    if terrain["dynamics_launches_with_ceiling"] or terrain["has_ceiling"]:
         raise AssertionError("terrain training: kernel B was given a "
                              "ceiling")
     full = run("terrain_training_full_rewards", phase_parkour_training,
@@ -2755,9 +2788,7 @@ def _run_all(run, results, model, go2, robots, new_kernel_phases,
               algo="ppornn")
     _check_launches("ppornn training", rnn)
     for algo, r in (("ppo_plus", plus), ("ppornn", rnn)):
-        if r["dynamics_calls_with_ceiling"] != r["launches"]["dynamics"]:
-            raise AssertionError(f"{algo} training: kernel B ran without "
-                                 f"the ceiling")
+        _check_ceiling(f"{algo} training", r)
     rma = run("rma_training", phase_preset_training, "go1_flat", num_envs=B,
               iterations=2, algo="rma")
     _check_launches("rma training", rma)

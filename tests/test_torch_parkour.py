@@ -97,8 +97,9 @@ def test_cat_manager_matches_jax():
         ps = {"a": 0.3, "b": 1.0, "c": 0.07 + step}
         js, jp, jv, ja = jm.step(js, {k: jnp.asarray(v) for k, v in
                                       cs.items()}, ps)
+        maxp = torch.tensor([ps[n] for n, w in decls for _ in range(w)])
         ts, tp, tv, ta = tm.step(ts, {k: torch.from_numpy(v) for k, v in
-                                      cs.items()}, ps)
+                                      cs.items()}, maxp)
         np.testing.assert_allclose(ts.running_max.numpy(),
                                    np.asarray(js.running_max), atol=1e-6)
         np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=1e-6)

@@ -229,7 +229,10 @@ def test_one_iteration_records_the_rollouts_spans(algo, minibatches,
     assert syncs == sum(v["syncs"] for v in s.values())
     if algo == "ppo_cse":
         assert s["learner.minibatch"]["syncs"] == 20      # float(kl)
-    assert syncs >= 24 and rec["counters"]["sync_wait_ns"] > 0
+        assert syncs >= 24 and rec["counters"]["sync_wait_ns"] > 0
+    else:
+        # the parkour env step and the CaT learners make none
+        assert syncs == 0
 
 
 # ---------------------------------------------------------------------------
@@ -314,4 +317,5 @@ def test_host_syncs_are_the_sync_debug_modes_syncs(card, algo, tmp_path):
              if "synchroniz" in str(w.message)]
     rec = spans.records()[-1]
     assert rec["counters"]["host_syncs"] == len(where), sorted(set(where))
-    assert len(where) > 0
+    # the parkour env step replays a graph and makes none
+    assert (len(where) > 0) == (algo == "ppo_cse")

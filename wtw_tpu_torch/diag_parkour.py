@@ -160,11 +160,11 @@ def run(env, policy, level: int, steps: int, seed: int = 0,
         world, obs, rew, done, info = env.step(world, policy(obs))
         td = info["true_dones"]
         first_done |= td
-        e = world.env
+        e = world.env       # the env's state arena on a card: copy
         for k, v in (("true_dones", td), ("dist_at_done",
                                           info["dist_at_done"]),
                      ("argmax_col", info["cstr_argmax_col"]),
-                     ("progress", e.progress),
+                     ("progress", e.progress.clone()),
                      ("alive_x", e.phys.base_pos[:, 0] - e.env_origin[:, 0]),
                      *info["done_reasons"].items()):
             traces[k].append(v)

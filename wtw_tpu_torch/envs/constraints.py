@@ -22,7 +22,6 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 from ..parallel.mesh import all_max, all_mean
-from ..utils import spans
 
 
 @dataclasses.dataclass
@@ -47,37 +46,43 @@ class CaTManager:
         self.tau = tau
         self.min_p = min_p
         self.group = group
-        # column -> constraint one-hot, for the per-constraint violation
-        # fractions in one product
-        block = torch.zeros(self.total, len(self.names))
-        for k, n in enumerate(self.names):
-            a, b = self.offsets[n]
-            block[a:b, k] = 1.0
-        self._block = block.to(device)
+        # column -> its constraint, for the per-constraint violation
+        # fractions (a sum over columns, not a matrix product: the parkour
+        # env step is captured on a side stream, where a cuBLAS call would
+        # allocate that stream a workspace of its own)
+        self._col_constraint = torch.tensor(
+            [k for k, w in enumerate(self.widths) for _ in range(w)],
+            device=device)
         self.device = torch.device(device)
 
     def init_state(self) -> CaTState:
         return CaTState(running_max=torch.full((self.total,), 1e-6,
                                                device=self.device))
 
+    def columns(self, names) -> torch.Tensor:
+        """(total_cols,) bool mask of the named constraints' columns (built
+        once, on the host)."""
+        mask = torch.zeros(self.total, dtype=torch.bool)
+        for n in names:
+            a, b = self.offsets[n]
+            mask[a:b] = True
+        return mask.to(self.device)
+
     def step(self, state: CaTState, constraints: Dict[str, torch.Tensor],
-             max_ps: Dict[str, float]):
+             maxp: torch.Tensor):
         """One step: -> (new state, probs (N,), violation fraction per
         constraint {name: ()}, binding column per env (N,)).
 
         constraints[name]: (N,) or (N, w) violation values (> 0 = violated).
-        max_ps[name]: the constraint's max termination probability."""
+        maxp: (total_cols,) float32, each column's max termination
+        probability, on the device."""
         if set(constraints) != set(self.names):
             raise KeyError(f"declared {self.names}, got {list(constraints)}")
         allc = torch.cat([constraints[n].reshape(
             constraints[n].shape[0], -1).float() for n in self.names], dim=1)
-        dev = allc.device
         batch_max = all_max(torch.clamp(allc.max(dim=0).values, min=1e-6),
                             self.group)
         new_rm = self.tau * state.running_max + (1 - self.tau) * batch_max
-        maxp = spans.tensor([float(max_ps[n]) for n, w in
-                             zip(self.names, self.widths) for _ in range(w)],
-                            dev)
         scaled = torch.clamp(allc / new_rm[None, :], 0.0, 1.0)
         probs = torch.where(allc > 0.0,
                             self.min_p + scaled * (maxp - self.min_p)[None, :],
@@ -85,7 +90,9 @@ class CaTManager:
         env_prob, env_argmax_col = probs.max(dim=1)
         # fraction of envs with any violated column, per constraint
         # (ConstraintManager.log_all / get_vals :104-121)
-        hit = ((probs > 0.0).float() @ self._block) > 0.0
+        hit = torch.zeros(probs.shape[0], len(self.names),
+                          device=probs.device).index_add_(
+            1, self._col_constraint, (probs > 0.0).float()) > 0.0
         frac = all_mean(hit.float().mean(dim=0), self.group)
         viol = dict(zip(self.names, frac.unbind()))
         return CaTState(running_max=new_rm), env_prob, viol, env_argmax_col

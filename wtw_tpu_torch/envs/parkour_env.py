@@ -33,11 +33,13 @@ draw is made (tests switch the draws off).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from .. import resolve_device
 from ..config import TerrainCfg
@@ -50,7 +52,7 @@ from ..terrain import (ParkourTerrainCfg, assign_env_origins,
                        assign_parkour_origins, build_parkour, build_terrain,
                        ceiling_heightfield, to_heightfield)
 from ..utils import quat as quat_util
-from ..utils import spans
+from ..utils import graphs, spans
 from . import gait
 from .constraints import CaTManager, CaTState, sqrt_func
 
@@ -301,18 +303,21 @@ _HARD_P = ("knee_contact", "base_contact", "foot_contact", "upsidedown",
 
 
 def _where(mask: torch.Tensor, a, b):
-    """Masked select with the (N,) mask broadcast over trailing dims."""
+    """Masked select with the (N,) mask broadcast over trailing dims; `a`
+    a tensor or a Python number (of b's kind: no host-to-device copy)."""
     if not torch.is_tensor(a):
-        a = spans.as_tensor(a, dtype=b.dtype, device=b.device)
+        a = (float(a) if b.is_floating_point()
+             else bool(a) if b.dtype == torch.bool else int(a))
     return torch.where(mask.reshape(mask.shape + (1,) * (b.dim() - 1)), a, b)
 
 
 def soft_p_step(progress: np.float32, cfg: ParkourCfg):
     """One step of the soft-p curriculum (go2_parkour.py:966-974): ->
-    (progress', soft_p), both float32. The progress is carried and summed
-    in float32 exactly as the JAX env sums it (a float32 scalar plus the
-    weakly typed 1 / soft_p_total_steps, rounded to float32 first), so the
-    schedule reaches 1.0 at the same step on both sides."""
+    (progress', soft_p), both float32 (elementwise for an array of
+    progresses). The progress is carried and summed in float32 exactly as
+    the JAX env sums it (a float32 scalar plus the weakly typed 1 /
+    soft_p_total_steps, rounded to float32 first), so the schedule reaches
+    1.0 at the same step on both sides."""
     f32 = np.float32
     progress = np.clip(f32(progress) + f32(1.0 / cfg.soft_p_total_steps),
                        f32(0.0), f32(1.0)).astype(f32)
@@ -322,10 +327,35 @@ def soft_p_step(progress: np.float32, cfg: ParkourCfg):
         # JAX step fuses the multiply-add (one rounding): the product and
         # sum are exact in float64, so one rounding to float32 matches it
         slope = float(f32(1.0 / cfg.soft_p - 25.0))
-        soft_p = f32(1.0) / f32(25.0 + float(progress) * slope)
+        soft_p = f32(1.0) / (25.0 + progress.astype(np.float64)
+                             * slope).astype(f32)
     else:
         soft_p = f32(cfg.soft_p)
     return progress, f32(soft_p)
+
+
+def soft_p_mirror(progress: torch.Tensor, cfg: ParkourCfg):
+    """`soft_p_step` on a float32 tensor of progresses (the env step's
+    device mirror, a 0-d tensor, or a whole sequence at once), with the
+    same roundings: the float32 clip-add, then 25 + progress * slope in
+    float64 as two separate ops, rounded to float32, and its float32
+    reciprocal. -> (progress', soft_p), float32, bit for bit the host's."""
+    f32 = np.float32
+    inc = float(f32(1.0 / cfg.soft_p_total_steps))
+    progress = torch.clamp(progress + inc, 0.0, 1.0)
+    if cfg.use_soft_p_curriculum:
+        slope = float(f32(1.0 / cfg.soft_p - 25.0))
+        t = progress.double() * slope
+        soft_p = torch.reciprocal((t + 25.0).float())
+    else:
+        soft_p = torch.full_like(progress, float(f32(cfg.soft_p)))
+    return progress, soft_p
+
+
+def graph_engages(device, group) -> bool:
+    """Whether `ParkourEnv.step` replays a CUDA graph: on a CUDA device and
+    unsharded (a sharded rank's collectives cannot be captured)."""
+    return torch.device(device).type == "cuda" and group is None
 
 
 class ParkourEnv:
@@ -396,6 +426,18 @@ class ParkourEnv:
         self.default_joint_q = default_joint_angles(
             model, dict(GO2_DEFAULT_JOINT_ANGLES))
         self.base_init_pos = f32(cfg.init_pos)
+        # constants of the step, made once (a per-step copy from the host
+        # would be a host sync)
+        self.g_unit = f32([0.0, 0.0, -1.0])
+        self.forward_command = f32([cfg.only_forwards_velocity, 0.0, 0.0])
+        self.command_obs_scale = f32([cfg.lin_vel_scale, cfg.lin_vel_scale,
+                                      cfg.ang_vel_scale])
+        self.phase_offsets = f32([0.0, np.pi, np.pi, 0.0])
+        # raibert: nominal stance x and y per foot, and the side of the y
+        # offset (go2_terrain.py:612-646)
+        self.raibert_nom = f32([[0.225, 0.225, -0.225, -0.225],
+                                [0.125, -0.125, 0.125, -0.125]])
+        self.raibert_side = f32([1.0, 1.0, -1.0, -1.0])
         self.hfe_ix = torch.tensor([1, 4], device=dev)
         self.kfe_ix = torch.tensor([2, 5, 8, 11], device=dev)
         self.haa_ix = torch.tensor([0, 3, 6, 9], device=dev)
@@ -429,6 +471,11 @@ class ParkourEnv:
                                min_p=cfg.cat_min_p, device=dev, group=group)
         self.cstr_names = list(self.cstr.names)
         self.n_metrics = 2 + len(self.cstr_names)
+        # per-column max termination probabilities: 1 on the hard columns,
+        # soft_p elsewhere, 0.1 more on stumble's (go2_parkour.py:1005-1016)
+        self.hard_cols = self.cstr.columns(_HARD_P)
+        self.stumble_add = self.cstr.columns(["stumble"]).float() * float(
+            np.float32(0.1))
 
         # observation layout
         self.sample_obs_size = self._sample_obs_dim()
@@ -440,6 +487,8 @@ class ParkourEnv:
         self.obs_index = torch.cat([
             torch.arange(i * step, i * step + self.sample_obs_size)
             for i in range(cfg.num_history_samples)]).to(dev)
+        self._donated = (DonatedStep(self) if graph_engages(dev, group)
+                         else None)
 
     # ------------------------------------------------------------------
     def _sample_obs_dim(self) -> int:
@@ -578,8 +627,7 @@ class ParkourEnv:
         wz = 0 at resample (flipped stochastically later); deadzone."""
         cfg, dev = self.cfg, self.device
         if cfg.only_forwards:
-            return spans.tensor([cfg.only_forwards_velocity, 0.0, 0.0],
-                                dev).expand(N, 3).clone()
+            return self.forward_command.expand(N, 3).clone()
         vx = self._uniform(gen, (N,), *cfg.lin_vel_x)
         vy = self._uniform(gen, (N,), *cfg.lin_vel_y)
         cmd = torch.stack([vx, vy, torch.zeros_like(vx)], dim=-1)
@@ -653,6 +701,33 @@ class ParkourEnv:
     # ------------------------------------------------------------------
     @spans.spanned("env.step")
     def step(self, world: ParkourWorld, actions: torch.Tensor):
+        """On a CUDA device and unsharded (`graph_engages`), the replay of
+        one CUDA graph over a donated world (`DonatedStep`): the world
+        returned is the env's state arena, which the next step overwrites.
+        Elsewhere the functional step: fresh tensors out."""
+        if self._donated is not None:
+            return self._donated.step(world, actions)
+        return self.functional_step(world, actions)
+
+    def functional_step(self, world: ParkourWorld, actions: torch.Tensor):
+        """The step as a function of the world (the eager step)."""
+        soft_p_progress, soft_p = soft_p_step(world.soft_p_progress, self.cfg)
+        common_step = world.common_step + 1
+        env, cat_state, hist, obs, rew, done_prob, info = self._step_body(
+            world, actions, float(soft_p), common_step == 1)
+        info["soft_p"] = soft_p
+        world = ParkourWorld(env=env, cat=cat_state,
+                             soft_p_progress=soft_p_progress, hist_obs=hist,
+                             common_step=common_step, gen=world.gen)
+        return world, obs, rew, done_prob, info
+
+    def _step_body(self, world: ParkourWorld, actions: torch.Tensor, soft_p,
+                   first_step):
+        """The step's device work, with no host sync: `soft_p` is this
+        step's soft p and `first_step` whether common_step is now 1, each a
+        host value or a 0-d device tensor (the graph's mirrors); the
+        world's host fields are not read. -> (env', CaT state', history',
+        obs, rew, done_prob, info without "soft_p")."""
         cfg, model = self.cfg, self.model
         N = actions.shape[0]
         gen = world.gen
@@ -670,7 +745,6 @@ class ParkourEnv:
             for _ in range(cfg.decimation):
                 env, (cinfo,) = self._substep(env, actions)
         env = dataclasses.replace(env, progress=env.progress + 1)
-        common_step = world.common_step + 1
 
         phys = env.phys
         # ---- divergence guard (see ParkourCfg.divergence_*) ----
@@ -688,9 +762,8 @@ class ParkourEnv:
                                                      phys.base_lin_vel)
         base_ang_vel = quat_util.quat_rotate_inverse(phys.base_quat,
                                                      phys.base_ang_vel)
-        g_unit = spans.tensor([0.0, 0.0, -1.0], dev).expand(N, 3)
-        projected_gravity = quat_util.quat_rotate_inverse(phys.base_quat,
-                                                          g_unit)
+        projected_gravity = quat_util.quat_rotate_inverse(
+            phys.base_quat, self.g_unit.expand(N, 3))
 
         # ---- pushes (push_robots :1211-1216) ----
         if cfg.push_robots:
@@ -768,8 +841,6 @@ class ParkourEnv:
         flat_style = calm.float()
         n_contacts = contacts_filt.float().sum(dim=1)
 
-        soft_p_progress, soft_p = soft_p_step(world.soft_p_progress, cfg)
-
         constraints = {
             "heading": sqrt_func(cstr_heading),
             "stumble": sqrt_func(torch.linalg.vector_norm(ff[..., :2], dim=-1)
@@ -801,17 +872,14 @@ class ParkourEnv:
                                  * flat_style),
             "2footcontact": (n_contacts - 2).abs() * nz * flat_style,
         }
-        max_ps = {n: soft_p for n in self.cstr_names}
-        for n in _HARD_P:
-            max_ps[n] = 1.0
-        max_ps["stumble"] = np.float32(0.1) + soft_p
+        maxp = torch.where(self.hard_cols, 1.0, self.stumble_add + soft_p)
 
         # a diverged env contributes nothing to the constraint stream: its
         # values would poison the Polyak running maxes for good
         constraints = {n: _where(diverged, 0.0, c)
                        for n, c in constraints.items()}
         cat_state, cstr_prob, viol, cstr_argmax = self.cstr.step(
-            world.cat, constraints, max_ps)
+            world.cat, constraints, maxp)
 
         # float dones for GAE + hard resets (:1021-1025)
         done_prob = torch.where(diverged, torch.ones_like(cstr_prob),
@@ -894,7 +962,7 @@ class ParkourEnv:
         obs_sample = self._observe(env, gen)
         # refresh history for just-reset envs (compute_observations
         # :601-605; the first step after a global reset too)
-        resetted = (env.progress == 0) | (common_step == 1)
+        resetted = (env.progress == 0) | first_step
         hist = _where(resetted, obs_sample.repeat(1, self.hist_len),
                       world.hist_obs)
         hist = torch.cat([obs_sample, hist[:, :-self.sample_obs_size]],
@@ -905,9 +973,6 @@ class ParkourEnv:
             env, last_last_actions=env.last_actions, last_actions=env.actions,
             last_joint_qd=env.phys.joint_qd,
             last_base_lin_vel=env.phys.base_lin_vel)
-        world = ParkourWorld(env=env, cat=cat_state,
-                             soft_p_progress=soft_p_progress, hist_obs=hist,
-                             common_step=common_step, gen=gen)
         info = {
             "true_dones": hard_done,
             "truncateds": timed_out,
@@ -918,7 +983,6 @@ class ParkourEnv:
             "episode_len_at_reset": ep_len_at_reset,
             "num_resets": n_reset,
             "dist_at_done": dist_pre_reset,
-            "soft_p": soft_p,
             "crossings_by_type": crossings_by_type,
             "dones_by_type": dones_by_type,
             "done_reasons": {
@@ -931,7 +995,7 @@ class ParkourEnv:
         }
         if true_next_obs is not None:
             info["true_next_obs"] = true_next_obs
-        return world, obs, rew, done_prob, info
+        return env, cat_state, hist, obs, rew, done_prob, info
 
     # ------------------------------------------------------------------
     def _full_rewards(self, env, cinfo, blv, bav, pg, contacts_touchdown,
@@ -982,15 +1046,12 @@ class ParkourEnv:
         inv_yaw = quat_util.quat_conjugate(quat_util.yaw_quat(phys.base_quat))
         feet_body = quat_util.quat_rotate(inv_yaw[:, None].expand(N, 4, 4),
                                           rel)
-        dev = self.device
-        ys_nom = spans.tensor([0.125, -0.125, 0.125, -0.125], dev)
-        xs_nom = spans.tensor([0.225, 0.225, -0.225, -0.225], dev)
+        xs_nom, ys_nom = self.raibert_nom
         phases = (1.0 - env.foot_indices * 2.0).abs() - 0.5      # (N, 4)
         freq = 3.0
         x_vel = env.commands[:, 0:1]
         y_vel = env.commands[:, 2:3] * 0.45 / 2
-        side = spans.tensor([1.0, 1.0, -1.0, -1.0], dev)
-        ys_off = phases * y_vel * (0.5 / freq) * side
+        ys_off = phases * y_vel * (0.5 / freq) * self.raibert_side
         xs_off = phases * x_vel * (0.5 / freq)
         des_x = xs_nom[None, :] + xs_off
         des_y = ys_nom[None, :] + ys_off
@@ -1103,11 +1164,10 @@ class ParkourEnv:
         :576-620, heights and ceilings re-read after the reset)."""
         phys = env.phys
         N = phys.base_pos.shape[0]
-        g_unit = spans.tensor([0.0, 0.0, -1.0], self.device).expand(N, 3)
         rot_inv = lambda v: quat_util.quat_rotate_inverse(phys.base_quat, v)
         return self._build_obs(
             env, rot_inv(phys.base_lin_vel), rot_inv(phys.base_ang_vel),
-            rot_inv(g_unit),
+            rot_inv(self.g_unit.expand(N, 3)),
             self._measured_heights(phys.base_pos, phys.base_quat),
             self._ceilings(env), gen)
 
@@ -1122,9 +1182,7 @@ class ParkourEnv:
             blocks.append(base_ang_vel * cfg.ang_vel_scale)
         if cfg.observe_commands:
             rc = self._robot_command(phys.base_quat, env.commands)
-            scale = spans.tensor([cfg.lin_vel_scale, cfg.lin_vel_scale,
-                                  cfg.ang_vel_scale], self.device)
-            blocks.append(rc * scale)
+            blocks.append(rc * self.command_obs_scale)
         if cfg.observe_misc:
             blocks += [projected_gravity, phys.joint_q * cfg.dof_pos_scale,
                        phys.joint_qd * cfg.dof_vel_scale, env.actions]
@@ -1135,9 +1193,9 @@ class ParkourEnv:
         if cfg.observe_ceilings:
             blocks.append(ceilings[:, None])
         if cfg.observe_phases:
-            off = spans.tensor([0.0, np.pi, np.pi, 0.0], self.device)
             ph = (2 * np.pi * cfg.phases_freq
-                  * env.progress[:, None].float() * self.dt + off)
+                  * env.progress[:, None].float() * self.dt
+                  + self.phase_offsets)
             blocks += [torch.cos(ph), torch.sin(ph)]
         if cfg.observe_imu:
             # base proper acceleration: the finite-difference world
@@ -1157,3 +1215,259 @@ class ParkourEnv:
     def get_observations(self, world: ParkourWorld) -> torch.Tensor:
         """Initial observation from the current history buffer."""
         return world.hist_obs[:, self.obs_index]
+
+
+# ---------------------------------------------------------------------------
+# the step over a donated world, replayed as one CUDA graph
+# ---------------------------------------------------------------------------
+
+_PHYS_FIELDS = [f.name for f in dataclasses.fields(PhysicsState)]
+_ENV_FIELDS = [f.name for f in dataclasses.fields(ParkourEnvState)
+               if f.name != "phys"]
+
+
+def _leaves(world: ParkourWorld) -> list:
+    """The world's tensors, in a fixed order: the physics state, the other
+    env fields, the CaT running maxima and the observation history."""
+    e = world.env
+    return ([getattr(e.phys, n) for n in _PHYS_FIELDS]
+            + [getattr(e, n) for n in _ENV_FIELDS]
+            + [world.cat.running_max, world.hist_obs])
+
+
+def _copy_all(dsts, srcs):
+    """dst.copy_(src) for every pair, as one multi-tensor copy per source
+    dtype (a few launches on a CUDA device)."""
+    groups = {}
+    for d, s in zip(dsts, srcs):
+        g = groups.setdefault(s.dtype, ([], []))
+        g[0].append(d)
+        g[1].append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+class DonatedStep:
+    """`ParkourEnv.step` over a donated world, as the JAX runner donates
+    its carried state (wtw_tpu/learn/runner.py:62): the world's tensors
+    live in one static arena, which is the step's input and its output.
+
+    - The first call runs the functional step (on a CUDA device on a side
+      stream, as the warm-up of the capture), makes the arena in the
+      layout of its world (`empty_like`), copies that world in, and on a
+      CUDA device captures `_arena_step` as one CUDA graph, with the
+      world's generator registered with it: a replay draws what the
+      functional step draws and advances the generator as far.
+    - A later call copies in each incoming world field whose storage is
+      not the arena's (the world of `init_state`, a restored checkpoint, a
+      caller's `dataclasses.replace`; a comparison of data pointers, no
+      device work), and a foreign generator's state; then copies the
+      actions in and replays the graph (on the CPU, where the tests hold
+      the write-back to the functional step, runs `_arena_step`). The
+      spans record counts both (`env_graph_replays`,
+      `env_state_copy_ins`).
+    - The host keeps `soft_p_progress` and `common_step` exactly as the
+      functional step does; the graph reads device mirrors of both, which
+      it advances, and which are rewritten from the host only when the
+      incoming world's values are not the ones they hold.
+    - obs, rew, done_prob and the tensors of info come back fresh: obs
+      gathered from the arena's history (as the step gathers it), the
+      rest packed into a few static buffers, grouped by how long callers
+      keep them, each cloned in one launch a call (`_pack_layout`). The
+      world returned is the arena: the next step overwrites it.
+    - The hand-written kernels' launches that the capture made are kept
+      (`captured`: per kernel its launches and, of kernel B's, those that
+      ran the ceiling pass); each replay adds them to the kernels'
+      `replayed` counts, not to the launches their wrappers count.
+
+    It holds its env by a weak reference (the env holds it), so that a
+    dropped env and its graph are freed at once, by reference counting,
+    and never by a collection that may run inside another env's capture.
+    """
+
+    def __init__(self, env: "ParkourEnv"):
+        self._env = weakref.ref(env)
+        self.arena = None           # the world's tensors (`_leaves`)
+        self.mirrors = None         # soft_p_progress and common_step
+        self.graph = None
+        self.captured = []          # (kernel, launches, ceiling launches)
+
+    @property
+    def env(self) -> "ParkourEnv":
+        return self._env()
+
+    # -- the world over the arena -------------------------------------
+    def _world(self, soft_p_progress, common_step) -> ParkourWorld:
+        leaves = self.arena
+        n = len(_PHYS_FIELDS)
+        env = ParkourEnvState(
+            phys=PhysicsState(**dict(zip(_PHYS_FIELDS, leaves[:n]))),
+            **dict(zip(_ENV_FIELDS, leaves[n:n + len(_ENV_FIELDS)])))
+        return ParkourWorld(env=env, cat=CaTState(running_max=leaves[-2]),
+                            soft_p_progress=soft_p_progress,
+                            hist_obs=leaves[-1], common_step=common_step,
+                            gen=self.gen)
+
+    # -- the outputs, packed ------------------------------------------
+    def _pack_layout(self, rew, done_prob, info):
+        """The step's outputs but obs in static buffers grouped by how long
+        callers keep them, so that a kept tensor holds no large clone
+        alive: rew and done_prob (kept by a rollout), the pre-reset
+        observation, the rest of info. The same tensor in two places of
+        info is packed once. (obs is read from the arena's history.)"""
+        flat, self.out_tree = tree_flatten((rew, done_prob, info))
+        group = {id(rew): 0, id(done_prob): 0,
+                 id(info.get("true_next_obs")): 1}
+        first, members = {}, [[], [], []]
+        for k, t in enumerate(flat):
+            if id(t) not in first:
+                first[id(t)] = k
+                members[group.get(id(t), 2)].append(t)
+        members = [m for m in members if m]
+        self.packs = [_Packed(m, self.env.device) for m in members]
+        slot = {id(t): (i, j) for i, m in enumerate(members)
+                for j, t in enumerate(m)}
+        self.out_index = [slot[id(t)] for t in flat]
+        # flat positions in the packs' order, and the packs' views
+        self.pack_order = [first[id(t)] for m in members for t in m]
+        self.out_views = [v for p in self.packs for v in p.views]
+
+    def _outputs(self):
+        """obs, gathered from the arena's history as the step gathers it,
+        and the packed outputs, cloned (one launch a buffer): (obs, rew,
+        done_prob, info)."""
+        obs = self.arena[-1][:, self.env.obs_index]    # get_observations
+        views = [p.unpack(p.buf.clone()) for p in self.packs]
+        flat = [views[i][j] for i, j in self.out_index]
+        return (obs,) + tree_unflatten(flat, self.out_tree)
+
+    # -- the step --------------------------------------------------------
+    def _arena_step(self):
+        """One step from the arena into the arena (what the graph holds):
+        the step's outputs go into the packed buffer first, then the new
+        world and mirrors into the arena, a source that shares storage with
+        the arena cloned before any write."""
+        env, cfg = self.env, self.env.cfg
+        sp, cs = self.mirrors
+        sp_new, soft_p = soft_p_mirror(sp, cfg)
+        cs_new = cs + 1
+        e, cat, hist, obs, rew, done_prob, info = env._step_body(
+            self._world(None, None), self.actions, soft_p, cs_new == 1)
+        flat, _ = tree_flatten((rew, done_prob, info))
+        _copy_all(self.out_views, [flat[k] for k in self.pack_order])
+        new = _leaves(ParkourWorld(env=e, cat=cat, soft_p_progress=None,
+                                   hist_obs=hist, common_step=None,
+                                   gen=None)) + [sp_new, cs_new]
+        state = self.arena + self.mirrors
+        mine = {a.untyped_storage().data_ptr() for a in state}
+        pairs = [(a, t.clone() if t.untyped_storage().data_ptr() in mine
+                  else t) for a, t in zip(state, new) if t is not a]
+        _copy_all([a for a, _ in pairs], [t for _, t in pairs])
+
+    def _first(self, world, actions):
+        """The functional step (the capture's warm-up, on the stream that
+        captures), then the arena, the packed outputs and the capture."""
+        dev = self.env.device
+        stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        if stream is None:
+            out = self.env.functional_step(world, actions)
+        else:
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                out = self.env.functional_step(world, actions)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+        w1, obs, rew, done_prob, info = out
+        self.gen = w1.gen
+        leaves = _leaves(w1)
+        self.arena = [torch.empty_like(t) for t in leaves]
+        _copy_all(self.arena, leaves)
+        self.mirrors = [
+            torch.full((), float(w1.soft_p_progress), device=dev),
+            torch.full((), w1.common_step, dtype=torch.long, device=dev)]
+        self.actions = torch.empty_like(actions)
+        self._pack_layout(rew, done_prob,
+                          {k: v for k, v in info.items() if k != "soft_p"})
+        if stream is not None:
+            self._capture(stream)
+        return out
+
+    def _capture(self, stream):
+        from ..physics import kernels as K
+        before = [(k.launches, k.ceiling_launches) for k in K.KERNELS]
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(self.gen)
+        with torch.cuda.graph(self.graph, stream=stream):
+            self._arena_step()
+        # the capture launched nothing on the device: a replay launches
+        # what it recorded
+        self.captured = [(k, k.launches - n, k.ceiling_launches - c)
+                         for k, (n, c) in zip(K.KERNELS, before)]
+        for k, (n, c) in zip(K.KERNELS, before):
+            k.launches, k.ceiling_launches = n, c
+
+    def _copy_in(self, world):
+        n = 0
+        for a, t in zip(self.arena, _leaves(world)):
+            if t is not a and t.data_ptr() != a.data_ptr():
+                a.copy_(t)
+                n += 1
+        if world.gen is not self.gen:
+            self.gen.set_state(world.gen.get_state())
+            n += 1
+        if (world.soft_p_progress, world.common_step) != self.expect:
+            self.mirrors[0].fill_(float(world.soft_p_progress))
+            self.mirrors[1].fill_(int(world.common_step))
+            n += 1
+        if n:
+            spans.count("env_state_copy_ins", n)
+
+    @torch.no_grad()
+    def step(self, world: ParkourWorld, actions: torch.Tensor):
+        soft_p_progress, soft_p = soft_p_step(world.soft_p_progress,
+                                              self.env.cfg)
+        common_step = world.common_step + 1
+        if self.arena is None:
+            _, obs, rew, done_prob, info = self._first(world, actions)
+        else:
+            self._copy_in(world)
+            self.actions.copy_(actions)
+            if self.graph is not None:
+                graphs.replay(self.graph)
+                spans.count("env_graph_replays")
+                for k, n, c in self.captured:
+                    k.replayed += n
+                    k.replayed_ceiling += c
+            else:
+                self._arena_step()
+            obs, rew, done_prob, info = self._outputs()
+            info["soft_p"] = soft_p
+        self.expect = (soft_p_progress, common_step)
+        return (self._world(soft_p_progress, common_step), obs, rew,
+                done_prob, info)
+
+
+class _Packed:
+    """Tensors of several dtypes in one static uint8 buffer: a region a
+    dtype (16-byte aligned), each tensor a view of its region."""
+
+    def __init__(self, ts, device):
+        sizes, at = {}, []
+        for t in ts:
+            at.append(sizes.get(t.dtype, 0))
+            sizes[t.dtype] = at[-1] + t.numel()
+        self.regions, nbytes = [], 0
+        for dt, n in sizes.items():
+            size = dt.itemsize * n
+            self.regions.append((dt, nbytes, nbytes + size))
+            nbytes += -(-size // 16) * 16
+        region = {dt: i for i, (dt, _, _) in enumerate(self.regions)}
+        self.slots = [(region[t.dtype], o, t.numel(), t.shape)
+                      for t, o in zip(ts, at)]
+        self.buf = torch.empty(nbytes, dtype=torch.uint8, device=device)
+        self.views = self.unpack(self.buf)
+
+    def unpack(self, buf) -> list:
+        """The tensors' views of `buf` (this buffer or a clone of it)."""
+        typed = [buf[a:b].view(dt) for dt, a, b in self.regions]
+        return [typed[r][o:o + n].view(shape)
+                for r, o, n, shape in self.slots]

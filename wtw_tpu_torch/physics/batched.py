@@ -416,9 +416,13 @@ def physics_step_batched(model: RobotModel, hf: HeightField,
     B = state.joint_q.shape[0]
     nj = model.nj
     dev = state.joint_q.device
-    f32 = lambda x: spans.as_tensor(x, dtype=torch.float32, device=dev)
-    bcast = lambda x, shape: (torch.zeros(shape, device=dev) if x is None
-                              else f32(x).expand(shape))
+
+    def bcast(x, shape):
+        # a Python number is a device fill, not a host-to-device copy
+        if x is None or isinstance(x, (int, float)):
+            return torch.full(shape, float(x or 0.0), device=dev)
+        return spans.as_tensor(x, dtype=torch.float32,
+                               device=dev).expand(shape)
 
     fk_in = torch.cat([state.base_pos, state.base_quat, state.joint_q],
                       dim=1).T.contiguous()
@@ -435,7 +439,7 @@ def physics_step_batched(model: RobotModel, hf: HeightField,
         ceil_h = _hf_height(hf_ceiling, fk_p[0], fk_p[1],
                             cached=cache.get("c"))
     env_rows = torch.cat([
-        f32(friction).expand(B)[None], f32(restitution).expand(B)[None],
+        bcast(friction, (B,))[None], bcast(restitution, (B,))[None],
         bcast(payload_mass, (B,))[None], bcast(com_offset, (B, 3)).T,
         bcast(external_accel, (B, 3)).T], dim=0).contiguous()
     out = kernels.dynamics(model, params, pack_state_rows(state, joint_torque),

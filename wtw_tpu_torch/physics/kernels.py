@@ -83,12 +83,20 @@ SLOT_GROUP = 16
 
 @dataclasses.dataclass
 class Kernel:
-    """A hand-written kernel's identity and its launch count (incremented
-    by its wrapper where, and only where, it launches the kernel)."""
+    """A hand-written kernel's identity and its launch counts: `launches`,
+    incremented by its wrapper where, and only where, it launches the
+    kernel (inside a CUDA-graph capture too), and `ceiling_launches`, those
+    of kernel B's launches that ran its ceiling pass; `replayed` and
+    `replayed_ceiling`, the same counts of the launches that replays of a
+    captured graph made (each replay adds what its capture launched:
+    `envs.parkour_env.DonatedStep`)."""
     name: str
     source: str
     replaces: str
     launches: int = 0
+    ceiling_launches: int = 0
+    replayed: int = 0
+    replayed_ceiling: int = 0
 
 
 FK = Kernel("fk", "wtw_tpu_torch/csrc/fk.cu",
@@ -588,4 +596,5 @@ def dynamics(model: RobotModel, params: EngineParams, state: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"kernel B launch failed: cudaError {rc}")
     DYNAMICS.launches += 1
+    DYNAMICS.ceiling_launches += ceil_h is not None
     return out

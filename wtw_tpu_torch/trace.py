@@ -30,7 +30,9 @@ ranges), and the device's busy share of
 the iteration's wall time (one stream, so kernel times do not overlap).
 A last line gives the host spans of `utils/spans.py` an iteration (calls,
 inclusive and self ms, the host syncs charged to each while it was the
-innermost) and the host syncs and their blocked ms, averaged over the
+innermost), the host syncs and their blocked ms, and the env steps
+replayed as a CUDA graph and the world fields copied into the env's state
+arena (`env_graph_replays`, `env_state_copy_ins`), averaged over the
 timed iterations that ran without the profiler (the profiled one where
 there is none). `--set` takes the training CLIs' overrides (e.g. `--set
 ac.compute_dtype=bfloat16` with a preset, for a bf16 iteration). Prints
@@ -248,6 +250,8 @@ def _span_table(recs):
             "host_syncs": sum(r["counters"]["host_syncs"] for r in recs) / n,
             "sync_wait_ms": sum(r["counters"]["sync_wait_ns"]
                                 for r in recs) / n / 1e6,
+            **{k: sum(r["counters"][k] for r in recs) / n
+               for k in ("env_graph_replays", "env_state_copy_ins")},
             "spans": {k: {"calls": c / n, "ms": ns / n / 1e6,
                           "self_ms": sf / n / 1e6, "syncs": sy / n,
                           "sync_ms": sn / n / 1e6}

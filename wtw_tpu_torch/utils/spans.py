@@ -13,8 +13,11 @@ inclusive ns, self ns without the child spans, and the host syncs and
 their ns charged to the span while it was the innermost) and the
 iteration's counters: `host_syncs` and `sync_wait_ns`, the calls of
 `host_float`, `tensor` and `as_tensor` (each a host-device
-synchronization on a CUDA device) and the host ns they blocked. The last
-`RING` records stay in memory (`records()`); nothing is written to disk.
+synchronization on a CUDA device) and the host ns they blocked, and the
+counts that `count` adds to: `env_graph_replays` (env steps replayed as a
+CUDA graph) and `env_state_copy_ins` (world fields an env step copied into
+its state arena; `envs/parkour_env.py`). The last `RING` records stay in
+memory (`records()`); nothing is written to disk.
 
 Three states:
 
@@ -77,7 +80,9 @@ def _open_record():
     global _record, _index
     _record = {"index": _index,
                "profiled": bool(_autograd_profiler._is_profiler_enabled),
-               "spans": {}, "counters": {"host_syncs": 0, "sync_wait_ns": 0}}
+               "spans": {}, "counters": {"host_syncs": 0, "sync_wait_ns": 0,
+                                         "env_graph_replays": 0,
+                                         "env_state_copy_ins": 0}}
     _index += 1
     _records.append(_record)
 
@@ -170,6 +175,13 @@ def _count_sync(ns: int):
         row = _row(_stack[-1].name)
         row["syncs"] += 1
         row["sync_ns"] += ns
+
+
+def count(name: str, n: int = 1):
+    """Add `n` to the open record's counter `name` (one of `_open_record`'s
+    counters)."""
+    if _enabled and _record is not None:
+        _record["counters"][name] += n
 
 
 def host_float(t: torch.Tensor) -> float:
